@@ -6,11 +6,15 @@
 Phases, one status line each; any failure exits non-zero:
   1. the card: name and power limit (nvidia-smi); python, torch, CUDA and
      triton versions;
-  2. build every kernel of the sampling path from the sources in this
-     checkout (nvcc, sm_90a), with the build seconds and nvcc's release;
-  3. each kernel against its plain PyTorch version at the shapes the
+  2. build every kernel of the sampling and training paths from the
+     sources in this checkout (nvcc, sm_90a, one process per source, all
+     started together), with the build seconds and nvcc's release;
+  3. the forward kernel against its plain PyTorch version at the shapes the
      sampling grid gives it (batch 54, bf16), with times of the kernel, the
      plain version and one PyTorch library call, and the card's bound;
+  3b. the backward kernel against its plain version at the same site
+     shapes at the training batch (48, bf16, random dO), per operand, with
+     the same times (library: SDPA's backward through autograd);
   4. the full-width UNet forward at batch 54 in bf16: kernel launches per
      forward, its device time by kernel (torch.profiler), and two rows
      against the same rows run on the CPU;
@@ -19,7 +23,14 @@ Phases, one status line each; any failure exits non-zero:
      `DiffusionPipeline.from_checkpoint`, the 27-image CFG grid over the
      1000-step DDPM schedule, then the dpm-20 grid as uint8 (and its
      device busy time, torch.profiler), and a tiny pipeline on the card
-     against the CPU.
+     against the CPU;
+  6. training on the card: full-width UNet gradients at batch 2 through
+     the kernel pair against the CPU's plain pair; 25 steps of the shipped
+     config (`configs/diff-kl-lin-32x32.yaml`, batch 48, bf16 compute on
+     fp32 parameters) through `image_diffusion_torch.scripts
+     .train_diffusion` on synthetic latents, with ms/step, loss and
+     gradient norm at each flush, and kernel launches per step; a resume
+     from its checkpoint; a torch.profiler trace of 3 train steps.
 Then a JSON line of kernel records, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
@@ -38,12 +49,19 @@ from importlib import metadata
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
 B_GRID = 54               # 27 images x 2 (conditional + unconditional rows)
+B_TRAIN = 48              # the shipped config's batch_size
+TRAIN_STEPS = 25          # trainer steps in phase 6: 5 flushes of log_interval 5
+CONFIG = "configs/diff-kl-lin-32x32.yaml"
 # (N tokens, C channels, heads) of the UNet's 14 self-attention sites, two each
 SITES = [(1024, 256, 8), (256, 384, 8), (64, 512, 8), (16, 512, 8),
          (64, 384, 8), (256, 256, 8), (1024, 128, 8)]
 # kernel vs plain version: |k - p| <= ATOL + RTOL * |p| elementwise (bf16
 # outputs; the repo's on-chip kernel bar was 2e-2)
 ATOL = RTOL = 2e-2
+# backward kernel, per operand: max|k - p| / max|p| (the CPU tests' bar).
+# The gradients' typical size is ~0.05 at N=1024, so the elementwise bar
+# above alone would let a systematic error of a few percent through
+BWD_REL_MAX = 2e-2
 # full-width UNet, card vs CPU rows in bf16: relative L2 error.  Both sides
 # round to bf16 at the same points, but sum in different orders through ~100
 # layers (bf16 vs fp32 of a reduced-width UNet on the CPU differ by 3.4e-2);
@@ -51,6 +69,14 @@ ATOL = RTOL = 2e-2
 UNET_REL_L2 = 1e-1
 # tiny pipeline, card vs CPU in bf16 through 4 dpm steps and the decode
 TINY_REL_L2 = 1e-1
+# full-width UNet gradients at batch 2, card (kernel pair) vs CPU (plain
+# pair), bf16 compute on the same fp32 parameters: relative L2 of the whole
+# gradient vector and of the 14 sites' to_q/to_k/to_v weight gradients
+# together, of the same kind as UNET_REL_L2; a site whose attention
+# gradient is lost gives 1.0 on its projections.  Each site's own
+# projections are held to the looser SITE_GRAD_REL_L2
+GRAD_REL_L2 = 1e-1
+SITE_GRAD_REL_L2 = 2.5e-1
 
 
 def log(msg: str) -> None:
@@ -131,6 +157,199 @@ def phase_kernels(torch, F, attn):
     return sites
 
 
+def phase_bwd_kernels(torch, F, attn):
+    """Phase 3b: the backward kernel vs its plain version and SDPA's
+    backward per site, at the training batch."""
+    sites = []
+    for N, C, h in SITES:
+        d = C // h
+        g = torch.Generator(device="cuda").manual_seed(2000 * N + C)
+        q, k, v, do = (torch.randn(B_TRAIN, N, C, generator=g, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        got = attn.packed_attention_bwd(q, k, v, do, h)
+        ref = attn.reference_packed_attention_bwd(q, k, v, do, h)
+        torch.cuda.synchronize()
+        errs, ratios, rels = {}, {}, {}
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            diff = (a.float() - b.float()).abs()
+            errs[name] = float(diff.max())
+            ratios[name] = float((diff / (ATOL + RTOL * b.float().abs())).max())
+            rels[name] = errs[name] / float(b.float().abs().max())
+        del got, ref
+        heads = [t.view(B_TRAIN, N, h, d).transpose(1, 2).contiguous().requires_grad_()
+                 for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*heads)
+        do_heads = do.view(B_TRAIN, N, h, d).transpose(1, 2).contiguous()
+        ms = cuda_ms(lambda: attn.packed_attention_bwd(q, k, v, do, h), iters=20)
+        plain_ms = cuda_ms(lambda: attn.reference_packed_attention_bwd(q, k, v, do, h), iters=3,
+                           warmup=1)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(out, heads, do_heads, retain_graph=True),
+                         iters=20)
+        del out, heads
+        # five products; q, k, v, dO read and dq, dk, dv written once
+        flops, nbytes = 10 * B_TRAIN * N * N * C, 7 * B_TRAIN * N * C * 2
+        bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        site = dict(N=N, C=C, d=d, max_abs_err=max(errs.values()), max_abs_err_by_operand=errs,
+                    tol_ratio_by_operand=ratios, rel_max_by_operand=rels, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound_ms,
+                    bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes")
+        sites.append(site)
+        log(f"phase 3b bwd kernel N={N:5d} C={C} d={d}: max|err| "
+            + " ".join(f"{n} {errs[n]:.3e}" for n in errs) + "; tolerance ratio "
+            + " ".join(f"{n} {ratios[n]:.3f}" for n in ratios) + "; max|err|/max|plain| "
+            + " ".join(f"{n} {rels[n]:.3e}" for n in rels) + f" (tolerance {BWD_REL_MAX})"
+            + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({site['bound_by']})")
+        if not (max(ratios.values()) <= 1.0 and max(rels.values()) < BWD_REL_MAX):
+            raise AssertionError(f"backward kernel disagrees with its plain version at N={N} C={C}")
+    return sites
+
+
+def _override(text: str, values: dict) -> str:
+    """The flat YAML `text` with the named keys' values replaced."""
+    lines = []
+    for line in text.splitlines():
+        key = line.split(":", 1)[0].strip()
+        lines.append(f"{key}: {values[key]}" if key in values and not line.startswith("#") else line)
+    return "\n".join(lines) + "\n"
+
+
+def phase_train(torch, np, attn, unet_state):
+    """Phase 6: training on the card."""
+    import csv
+
+    from image_diffusion_torch.core.config import UNetArch
+    from image_diffusion_torch.models import build_unet
+    from image_diffusion_torch.scripts.train_diffusion import main as train_main
+
+    # 1. full-width gradients at batch 2, card (kernel pair) vs CPU (plain pair)
+    g = torch.Generator().manual_seed(6)
+    x, noise = torch.randn(2, 32, 32, 3, generator=g), torch.randn(2, 32, 32, 3, generator=g)
+    t, c, mask = torch.tensor([10, 900]), torch.tensor([0, 2]), torch.tensor([[1.0], [0.0]])
+    grads, secs = [], []
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        unet = build_unet(UNetArch(), torch.bfloat16, dev, param_dtype=torch.float32)
+        unet.load_state_dict(unet_state)
+        eps = unet(*(a.to(dev) for a in (x, t, c, mask)))
+        torch.mean((eps.float() - noise.to(dev)) ** 2).backward()
+        grads.append({n: p.grad.float().cpu() for n, p in unet.named_parameters()})
+        secs.append(time.perf_counter() - t0)
+        del unet, eps
+    card, cpu = grads
+
+    def rel(names):
+        a = torch.cat([card[n].flatten() for n in names])
+        b = torch.cat([cpu[n].flatten() for n in names])
+        return float((a - b).norm() / b.norm())
+
+    qkv = [n for n in cpu if n.rsplit(".", 2)[-2] in ("to_q", "to_k", "to_v") and n.endswith("weight")]
+    site_names = sorted({n.rsplit(".", 2)[0] for n in qkv})
+    per_site = {s: rel([n for n in qkv if n.startswith(s + ".")]) for s in site_names}
+    whole, qkv_err = rel(list(cpu)), rel(qkv)
+    log(f"phase 6 gradients: full-width UNet, batch 2, card vs CPU rel L2: all parameters "
+        f"{whole:.3e}, to_q/to_k/to_v weights of {len(site_names)} sites {qkv_err:.3e} "
+        f"(tolerance {GRAD_REL_L2}), worst site {max(per_site.values()):.3e} "
+        f"(tolerance {SITE_GRAD_REL_L2}); card {secs[0]:.1f} s, CPU {secs[1]:.1f} s")
+    if len(site_names) != 14 or not (whole <= GRAD_REL_L2 and qkv_err <= GRAD_REL_L2
+                                     and max(per_site.values()) <= SITE_GRAD_REL_L2):
+        raise AssertionError("full-width UNet gradients on the card disagree with the CPU")
+    del grads, card, cpu
+
+    # 2. the trainer through its entry point, 25 steps of the shipped config
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(0)
+        n = TRAIN_STEPS * B_TRAIN
+        np.save(os.path.join(tmp, "latents.npy"),
+                rng.standard_normal((n, 32, 32, 6), dtype=np.float32).astype(np.float16))
+        np.save(os.path.join(tmp, "labels.npy"), rng.integers(0, 3, n).astype(np.uint8))
+        with open(CONFIG) as f:
+            text = _override(f.read(), {
+                "train_set": os.path.join(tmp, "latents.npy"),
+                "train_labels": os.path.join(tmp, "labels.npy"),
+                "checkpoints_dir": os.path.join(tmp, "ckpt"), "logs_dir": os.path.join(tmp, "logs"),
+                "epochs": 1, "log_interval": 5})
+        config = os.path.join(tmp, "config.yaml")
+        with open(config, "w") as f:
+            f.write(text)
+        args = ["--config", config, "--experiment-name", "smoke", "--no-mlflow"]
+        attn.packed_attention.launches = attn.packed_attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = train_main(args)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {"forward": attn.packed_attention.launches,
+                    "backward": attn.packed_attention_bwd.launches}
+        with open(os.path.join(tmp, "logs", "smoke_metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        flushes = {}
+        for r in rows:
+            flushes.setdefault(int(r["step"]), {})[r["name"]] = float(r["value"])
+        flushes.pop(0, None)  # the epoch loss row (step = epoch 0)
+        steps = sorted(flushes)
+        # the flushes after the first: 5 steps each, timed between syncs
+        later = [flushes[s]["unet/samples_per_sec"] for s in steps[1:]]
+        step_ms = sum(5 * B_TRAIN / sps for sps in later) / (5 * len(later)) * 1e3
+        for s in steps:
+            log(f"phase 6 train flush at step {s + 1}: loss {flushes[s]['unet/loss']:.5f}, "
+                f"grad norm {flushes[s]['unet/grad']:.4f}, lr {flushes[s]['unet/lr']:.3e}, "
+                f"{flushes[s]['unet/samples_per_sec']:.1f} samples/s")
+        init = build_unet(UNetArch(), torch.float32, "cpu", torch.Generator().manual_seed(0))
+        moved = [(p.detach().cpu() - q.detach()).abs().flatten() for (name, p), q in
+                 zip(trainer.unet.named_parameters(), init.parameters())
+                 if name.endswith("weight") and p.dim() > 1]
+        moved = torch.cat(moved)
+        frac_moved, mean_moved = float((moved > 0).float().mean()), float(moved.mean())
+        ckpt = os.path.join(tmp, "ckpt", "smoke", "unet-epoch-00.ckpt")
+        finite = all(np.isfinite([f["unet/loss"], f["unet/grad"]]).all() for f in flushes.values())
+        fp32 = all(p.dtype == torch.float32 for p in trainer.unet.parameters())
+        log(f"phase 6 trainer: {trainer.state.step} steps in {run_s:.1f} s through "
+            f"image_diffusion_torch.scripts.train_diffusion (set-up and checkpoint included); "
+            f"{step_ms:.2f} ms/step after the first 5 ({B_TRAIN / step_ms * 1e3:.1f} samples/s); "
+            f"kernel launches {launches['forward']} forward, {launches['backward']} backward "
+            f"({launches['forward'] / TRAIN_STEPS:.0f} + {launches['backward'] / TRAIN_STEPS:.0f} "
+            f"per step); fp32 parameters {fp32}, {frac_moved:.4f} of weight elements moved, "
+            f"mean |change| {mean_moved:.3e}; checkpoint written {os.path.exists(ckpt)}")
+        if not (trainer.state.step == TRAIN_STEPS and len(steps) == TRAIN_STEPS // 5 and finite
+                and fp32 and frac_moved > 0.9 and os.path.exists(ckpt)):
+            raise AssertionError("trainer: wrong step count, non-finite metrics, fp32 parameters "
+                                 "that did not move, or no checkpoint")
+        if launches != {"forward": 14 * TRAIN_STEPS, "backward": 14 * TRAIN_STEPS}:
+            raise AssertionError(f"trainer: {launches} kernel launches, expected 14 + 14 per step")
+
+        # 3. resume from the checkpoint: step, parameters and moments equal
+        resumed = train_main(args + ["--checkpoint", ckpt])
+        mu, nu = trainer.state.optimizer.moments()
+        mu2, nu2 = resumed.state.optimizer.moments()
+        same = (resumed.state.step == trainer.state.step
+                and all(torch.equal(a, b) for a, b in zip(trainer.state.optimizer.params,
+                                                          resumed.state.optimizer.params))
+                and all(torch.equal(a, b) for a, b in zip(mu + nu, mu2 + nu2)))
+        log(f"phase 6 resume: step {resumed.state.step}, epoch {resumed.curr_epoch}; parameters "
+            f"and Adam moments equal: {same}")
+        if not same:
+            raise AssertionError("resume: step, parameters or Adam moments differ")
+        del resumed
+
+        # 4. profile 3 train steps
+        x_dev = torch.from_numpy(np.load(os.path.join(tmp, "latents.npy"))[:B_TRAIN]).cuda()
+        c_dev = torch.from_numpy(np.load(os.path.join(tmp, "labels.npy"))[:B_TRAIN]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prof, kernels, wall = device_profile(
+        torch, lambda: trainer.train_step(trainer.state, x_dev, c_dev, gen), iters=3)
+    busy = sum(prof.values())
+    bwd_ms = sum(v for k, v in prof.items() if "dq_kernel" in k or "dkdv_kernel" in k)
+    fwd_ms = sum(v for k, v in prof.items() if "packed_attention_kernel" in k)
+    top = sorted(prof.items(), key=lambda kv: -kv[1])[:6]
+    log(f"phase 6 profile: device busy {busy:.3f} ms of a {wall:.3f} ms train step "
+        f"(idle share {idle_share(busy, wall)}); {kernels:.0f} kernels per step; "
+        f"packed_attention_bwd {bwd_ms:.3f} ms, packed_attention {fwd_ms:.3f} ms; top: "
+        + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top))
+    return dict(step_ms=step_ms, busy_ms=busy, wall_ms=wall, launches=launches,
+                bwd_device_ms=bwd_ms, grad_rel_l2=whole, qkv_grad_rel_l2=qkv_err)
+
+
 def main() -> int:
     import torch
 
@@ -143,6 +362,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the image_diffusion_torch package is not here: {e}", file=sys.stderr)
         return 2
+    import numpy as np
     import torch.nn.functional as F
 
     from image_diffusion_torch import ops
@@ -166,11 +386,13 @@ def main() -> int:
     nvcc_version = subprocess.run([nvcc(), "--version"], capture_output=True, text=True,
                                   check=True, timeout=60).stdout.strip().splitlines()[-1]
     t0 = time.perf_counter()
-    build(["packed_attention"])
-    log(f"phase 2 build: packed_attention.cu in {time.perf_counter() - t0:.1f} s ({nvcc_version})")
+    build(["packed_attention", "packed_attention_bwd"])
+    log(f"phase 2 build: packed_attention.cu and packed_attention_bwd.cu in "
+        f"{time.perf_counter() - t0:.1f} s ({nvcc_version})")
 
     # phase 3: kernels against their plain versions
     sites = phase_kernels(torch, F, attn)
+    bwd_sites = phase_bwd_kernels(torch, F, attn)
 
     # phase 4: full-width UNet forward on the card, two rows against the CPU
     gen = torch.Generator().manual_seed(0)
@@ -277,9 +499,16 @@ def main() -> int:
     log(f"phase 5 tiny pipeline card vs CPU: rel L2 {tiny_err:.3e} (tolerance {TINY_REL_L2})")
     if not tiny_err <= TINY_REL_L2:
         raise AssertionError("tiny pipeline on the card disagrees with the CPU")
+    del pipe, imgs, u8
+
+    # phase 6: training on the card
+    train = phase_train(torch, np, attn, unet_state)
 
     per_forward = {k: 2 * sum(s[k] for s in sites) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     bound_ops = 2 * sum(s["bound_ms"] for s in sites if s["bound_by"] == "operations")
+    per_backward = {k: 2 * sum(s[k] for s in bwd_sites)
+                    for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    bwd_bound_ops = 2 * sum(s["bound_ms"] for s in bwd_sites if s["bound_by"] == "operations")
     record = {"kernels": [{
         "name": "packed_attention",
         "route": "cuda",
@@ -291,9 +520,23 @@ def main() -> int:
         "bound_by": "operations" if bound_ops > per_forward["bound_ms"] / 2 else "bytes",
         "per": "one UNet forward at batch 54: 14 sites, two of each shape in sites",
         "sites": sites,
+    }, {
+        "name": "packed_attention_bwd",
+        "route": "cuda",
+        "source": "image_diffusion_torch/ops/csrc/packed_attention_bwd.cu",
+        "replaces": "image_diffusion_tpu/ops/pallas/attention.py:288",
+        "launches": train["launches"]["backward"],
+        "max_abs_err": max(s["max_abs_err"] for s in bwd_sites),
+        **per_backward,
+        "bound_by": "operations" if bwd_bound_ops > per_backward["bound_ms"] / 2 else "bytes",
+        "per": "one UNet backward at batch 48: 14 sites, two of each shape in sites",
+        "sites": bwd_sites,
     }], "unet_forward_ms": fwd_ms, "unet_forward_device_busy_ms": busy_ms,
         "ddpm_grid_s": ddpm_s, "dpm20_grid_s": dpm_s, "dpm20_grid_device_busy_ms": dpm_busy,
-        "dpm20_launches": dpm_launches}
+        "dpm20_launches": dpm_launches, "train_step_ms": train["step_ms"],
+        "train_step_device_busy_ms": train["busy_ms"], "train_step_profiled_ms": train["wall_ms"],
+        "train_launches": train["launches"], "train_grad_rel_l2": train["grad_rel_l2"],
+        "train_qkv_grad_rel_l2": train["qkv_grad_rel_l2"]}
     log(json.dumps(record))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,11 +1,16 @@
-"""Weights carried across: the JAX package's flax trees <-> the port's
-state dicts.
+"""Weights and trainer state carried across: the JAX package's flax trees
+<-> the port's state dicts.
 
 Conv kernels go HWIO <-> OIHW, dense kernels (in, out) <-> (out, in),
 GroupNorm scale <-> weight; the class embedding table is not transposed.
 Module paths map to the original PyTorch implementation's names (the same
 mapping as the JAX package's export tool).  One table of (flax module
 path, torch module name, kind) entries per model serves both directions.
+
+The trainer's optimizer state is the `to_state_dict` form of the JAX
+trainer's `optax.chain(clip_by_global_norm, adam(schedule))` state: Adam's
+`mu`/`nu` trees map to torch's `exp_avg`/`exp_avg_sq` through the same
+parameter table, and both `count`s are the step.
 """
 
 from __future__ import annotations
@@ -123,6 +128,29 @@ def unet_flax_params(state: Mapping[str, torch.Tensor]) -> dict:
     for fp, tp, kind in _unet_entries(n_down, n_mid, n_layers):
         _put(params, fp, _to_flax(kind, state[f"{tp}.weight"], state[f"{tp}.bias"]))
     return params
+
+
+def adam_tree(step: int, exp_avg: Mapping[str, torch.Tensor],
+              exp_avg_sq: Mapping[str, torch.Tensor], clipped: bool) -> dict:
+    """The UNet trainer's optax state tree from Adam's moments (keyed like
+    the UNet state dict) at `step` updates.  `clipped`: the chain starts
+    with clip_by_global_norm, whose state is empty."""
+    adam = {"count": np.asarray(step, dtype=np.int32), "mu": unet_flax_params(exp_avg),
+            "nu": unet_flax_params(exp_avg_sq)}
+    inner = {"0": adam, "1": {"count": np.asarray(step, dtype=np.int32)}}
+    return {"0": {}, "1": inner} if clipped else inner
+
+
+def adam_state(tree: Mapping) -> tuple[int, dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """-> (count, exp_avg, exp_avg_sq) from a UNet trainer's optax state
+    tree, clipped or not; the moments keyed like the UNet state dict."""
+    adam = (tree if "mu" in tree["0"] else tree["1"])["0"]
+    moments = []
+    for name in ("mu", "nu"):
+        state = unet_state_dict(adam[name])
+        del state["time_embedding.factor"]  # a buffer, not a parameter
+        moments.append(state)
+    return int(np.asarray(adam["count"])), moments[0], moments[1]
 
 
 # VAE trunks: flax `layers_{i}` <-> torch `{encoder.down|decoder.up}.{i}`,

@@ -9,9 +9,10 @@ Layout of a file:
 
 Flax encodes an ndarray as msgpack ext type 1 whose payload is itself a
 msgpack array `[shape, dtype name, raw C-order bytes]`.  The codec below
-covers the subset flax emits for parameter trees: maps, arrays, str, bin,
-ints, floats, nil, bool and ext type 1, with float32, int32, uint8 and
-float16 arrays.  Anything else raises.
+covers the subset flax emits for parameter and trainer-state trees: maps,
+arrays, str, bin, ints, floats, nil, bool and ext type 1, with float32,
+int32, int64 (a trainer's step), uint8 and float16 arrays.  Anything else
+raises.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import json
 import os
 import struct
+import threading
 from typing import Any
 
 import numpy as np
@@ -26,7 +28,8 @@ import numpy as np
 MAGIC = b"IDTPU1\x00\x00"
 
 _EXT_NDARRAY = 1
-_DTYPES = {"float32": np.float32, "int32": np.int32, "uint8": np.uint8, "float16": np.float16}
+_DTYPES = {"float32": np.float32, "int32": np.int32, "int64": np.int64, "uint8": np.uint8,
+           "float16": np.float16}
 
 
 # ----------------------------------------------------------------- encode
@@ -232,6 +235,39 @@ def save_checkpoint(path: str, architecture: dict | None = None, epoch: int | No
         f.write(meta.encode())
         f.write(blob)
     os.replace(tmp, path)
+
+
+class AsyncSaver:
+    """Checkpoint writes off the caller's thread: the caller hands over
+    trees already copied to the host, serialization and file IO run on a
+    background thread, and at most one write is in flight (a new save, or
+    `wait`, joins the previous one first)."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+
+    def save(self, path: str, architecture: dict | None = None, epoch: int | None = None,
+             **trees) -> None:
+        self.wait()
+
+        def work():
+            try:
+                save_checkpoint(path, architecture, epoch, **trees)
+            except BaseException as e:  # re-raised by wait() on the caller's thread
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=False)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the write in flight; raise what it raised."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
 
 def load_checkpoint(path: str) -> tuple[dict, dict]:

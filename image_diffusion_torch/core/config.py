@@ -1,11 +1,13 @@
-"""Architecture and schedule configuration.
+"""Architecture, schedule and training configuration.
 
 Reads the reference YAML files (`configs/*.yaml`) into frozen dataclasses
-whose `to_dict()` equals the JAX package's, so bundles written by either
-package carry the same architecture metadata.
+whose `to_dict()` equals the JAX package's, so bundles and checkpoints
+written by either package carry the same architecture metadata.  The files
+are read by a small reader of their flat subset (no `yaml` needed).
 
 Precision policy: "fp16" and "bf16" both compute in bfloat16 (no loss
-scaling needed), "fp32" stays fp32.
+scaling needed), "fp32" stays fp32; training holds parameters and optimizer
+state in fp32 either way.
 """
 
 from __future__ import annotations
@@ -18,15 +20,66 @@ from typing import Any
 import torch
 
 _SCI_NOTATION = re.compile(r"^\d+\.?\d*e[-+]?\d+$")
+# the plain scalars the shipped configs use, resolved as yaml.safe_load does
+_WORDS = {"": None, "null": None, "true": True, "false": False}
+_INT = re.compile(r"^[-+]?(0|[1-9][0-9]*)$")
+_FLOAT = re.compile(r"^[-+]?[0-9]+\.[0-9]*(?:[eE][-+][0-9]+)?$")
+
+
+def _strip_comment(text: str) -> str:
+    """`text` up to a `#` that starts a comment (at the start or after a
+    blank, outside quotes)."""
+    quote = None
+    for i, ch in enumerate(text):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#" and (i == 0 or text[i - 1] in " \t"):
+            return text[:i]
+    return text
+
+
+def _scalar(text: str) -> Any:
+    text = text.strip()
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "\"'":
+        return text[1:-1]
+    if text in _WORDS:
+        return _WORDS[text]
+    if _INT.match(text):
+        return int(text)
+    if _FLOAT.match(text):
+        return float(text)
+    return text
+
+
+def _value(text: str) -> Any:
+    text = text.strip()
+    if text.startswith("["):
+        if not text.endswith("]") or "[" in text[1:]:
+            raise ValueError(f"only flat flow lists are supported, got {text!r}")
+        inner = text[1:-1].strip()
+        return [_scalar(item) for item in inner.split(",")] if inner else []
+    return _scalar(text)
 
 
 def parse_config(path: str) -> dict[str, Any]:
-    """Parse a YAML config file, coercing scientific-notation strings
-    (yaml.safe_load leaves e.g. "5e-6" as a string)."""
-    import yaml
-
+    """Read a flat YAML config: one `key: value` per line, values plain or
+    quoted strings, ints, floats, true/false, null, or flow lists `[a, b]`;
+    `#` comments.  These resolve as `yaml.safe_load` resolves them;
+    scientific-notation strings, which it leaves as strings (e.g. "5e-6"),
+    are coerced to floats.  Nesting and block lists raise."""
+    data: dict[str, Any] = {}
     with open(path, "r") as f:
-        data = yaml.safe_load(f)
+        for lineno, raw in enumerate(f, 1):
+            line = _strip_comment(raw.rstrip("\n")).rstrip()
+            if not line.strip():
+                continue
+            key, sep, rest = line.partition(":")
+            if line[0] in " \t-" or not sep or (rest and rest[0] not in " \t"):
+                raise ValueError(f"{path}:{lineno}: not a flat `key: value` line: {raw!r}")
+            data[key.strip()] = _value(rest)
     for key, value in data.items():
         if isinstance(value, str) and _SCI_NOTATION.match(value):
             data[key] = float(value)
@@ -108,6 +161,65 @@ class ScheduleConfig:
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
+
+
+@dataclass(frozen=True)
+class TrainCommon:
+    learning_rate: float = 1e-5
+    warmup_steps: int = 0
+    batch_size: int = 48
+    epochs: int = 15
+    clip_grad: float | None = 1.0
+    precision: str = "bf16"
+    checkpoints_dir: str = "./checkpoints"
+    logs_dir: str = "./logs"
+    seed: int | None = 2018
+    log_interval: int = 50
+    # batch_size splits into grad_accum micro-batches whose gradients are
+    # averaged and applied once
+    grad_accum: int = 1
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return resolve_precision(self.precision)
+
+    def validate_accum(self):
+        if self.grad_accum < 1 or self.batch_size % self.grad_accum:
+            raise ValueError(
+                f"grad_accum {self.grad_accum} must divide batch_size {self.batch_size}"
+            )
+
+
+@dataclass(frozen=True)
+class DiffusionTrainConfig(TrainCommon):
+    """Stage-2 trainer hyperparameters (configs/diff-kl-*-32x32.yaml)."""
+
+    ae_type: str = "kl"
+    cond_drop_prob: float = 0.15
+    # activation remat policy; the port runs "none" only (the trainer raises
+    # on anything else)
+    remat: str = "none"
+    # EMA of the denoiser weights for sampling; None/0 disables
+    ema_decay: float | None = None
+    train_set: str = "./data/diffusion/kl/train.npy"
+    train_labels: str = "./data/diffusion/kl/train_labels.npy"
+
+
+@dataclass(frozen=True)
+class DiffusionConfig:
+    arch: UNetArch
+    schedule: ScheduleConfig
+    train: DiffusionTrainConfig
+
+    @classmethod
+    def from_yaml(cls, path: str, **overrides) -> "DiffusionConfig":
+        raw = parse_config(path)
+        raw.update(overrides)
+        return cls(
+            arch=_build(UNetArch, raw),
+            schedule=_build(ScheduleConfig, raw),
+            train=_build(DiffusionTrainConfig, raw),
+        )
 
 
 def _build(cls, raw: dict[str, Any]):

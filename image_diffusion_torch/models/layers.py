@@ -6,8 +6,12 @@ parameter names follow the original PyTorch implementation
 (`first_halfs.0.layers.0`, `self_attns.0.to_q`, `branch.2`, ...), so its
 state dicts load with a plain `load_state_dict`.
 
-Precision: conv and linear weights are held in the compute dtype (bf16 or
-fp32); GroupNorm parameters stay fp32 and its statistics are fp32 sums.
+Precision: conv and linear weights are held in the parameter dtype and
+cast to their input's dtype (the compute dtype) at use.  Sampling holds them
+in the compute dtype, so the cast is a no-op; training holds them in fp32
+with bf16 compute, the JAX package's policy (`param_dtype=float32`), so the
+optimizer state and updates are fp32.  GroupNorm parameters stay fp32 and
+its statistics are fp32 sums.
 Numerics follow the JAX package's layers:
   * GroupNorm: var = max(E[x^2] - E[x]^2, 0), eps 1e-5; in bf16 mode the
     per-element affine x*a + b runs in bf16 from fp32-computed a, b.
@@ -31,9 +35,23 @@ from torch import nn
 from .. import ops
 
 
-def conv(cin: int, cout: int, k: int = 3, stride: int = 1, valid: bool = False) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d whose weight and bias are cast to the input's dtype at use."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class Linear(nn.Linear):
+    """nn.Linear whose weight and bias are cast to the input's dtype at use."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+def conv(cin: int, cout: int, k: int = 3, stride: int = 1, valid: bool = False) -> Conv2d:
     """k x k conv, 'SAME' padding unless `valid`."""
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=0 if valid else k // 2)
+    return Conv2d(cin, cout, k, stride=stride, padding=0 if valid else k // 2)
 
 
 class GroupNorm(nn.Module):
@@ -89,10 +107,10 @@ class SpatialSelfAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.groupnorm = GroupNorm(num_groups, channels)
-        self.to_q = nn.Linear(channels, channels)
-        self.to_k = nn.Linear(channels, channels)
-        self.to_v = nn.Linear(channels, channels)
-        self.out_proj = nn.Linear(channels, channels)
+        self.to_q = Linear(channels, channels)
+        self.to_k = Linear(channels, channels)
+        self.to_v = Linear(channels, channels)
+        self.out_proj = Linear(channels, channels)
 
     def forward(self, x):
         B, C, H, W = x.shape
@@ -136,13 +154,15 @@ def sinusoid_factor(dim: int) -> torch.Tensor:
 
 
 class TimeEmbedding(nn.Module):
-    """Sinusoidal timestep embedding (fp32) and an MLP dim -> 4 dim -> dim."""
+    """Sinusoidal timestep embedding (fp32) and an MLP dim -> 4 dim -> dim
+    run in the compute dtype `dtype`."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dim = dim
+        self.dtype = dtype
         self.register_buffer("factor", sinusoid_factor(dim))
-        self.embeddings = nn.Sequential(nn.Linear(dim, 4 * dim), nn.SiLU(), nn.Linear(4 * dim, dim))
+        self.embeddings = nn.Sequential(Linear(dim, 4 * dim), nn.SiLU(), Linear(4 * dim, dim))
 
     def reset_buffers(self):
         self.factor.copy_(sinusoid_factor(self.dim))
@@ -150,7 +170,7 @@ class TimeEmbedding(nn.Module):
     def forward(self, t):
         angles = t.float()[:, None] / self.factor
         emb = torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
-        return self.embeddings(emb.to(self.embeddings[0].weight.dtype))
+        return self.embeddings(emb.to(self.dtype))
 
 
 class ConvBlock(nn.Module):
@@ -175,7 +195,7 @@ class DiffusionBlock(nn.Module):
         ins = [cin] + [cout] * (num_layers - 1)
         self.first_halfs = nn.ModuleList(ConvBlock(c, cout, num_groups) for c in ins)
         self.time_projs = nn.ModuleList(
-            nn.Sequential(nn.SiLU(), nn.Linear(time_dim, cout)) for _ in ins)
+            nn.Sequential(nn.SiLU(), Linear(time_dim, cout)) for _ in ins)
         self.second_halfs = nn.ModuleList(ConvBlock(cout, cout, num_groups) for _ in ins)
         self.residuals = nn.ModuleList(conv(c, cout, 1) for c in ins)
         self.self_attns = nn.ModuleList(
@@ -203,8 +223,8 @@ def materialize(model: nn.Module, dtype: torch.dtype, device: torch.device,
     and linear weights and biases, N(0, 1) for embeddings.  Without one,
     weights are zero, ready for `load_state_dict`.  GroupNorm starts at
     (1, 0); modules with buffers reset them (`reset_buffers`).  Conv and
-    linear layers are then cast to `dtype`, and 4-D weights go to
-    channels_last."""
+    linear parameters are then cast to `dtype` (the parameter dtype), and
+    4-D weights go to channels_last."""
     model.to_empty(device=device)
 
     def fill(p, draw):

@@ -28,7 +28,7 @@ class UNet(nn.Module):
                      num_groups=arch.num_groups, time_dim=arch.time_dim)
 
         self.class_embedding = nn.Embedding(arch.num_classes, arch.time_dim)
-        self.time_embedding = TimeEmbedding(arch.time_dim)
+        self.time_embedding = TimeEmbedding(arch.time_dim, dtype)
         self.in_conv = conv(arch.z_dim, ch[0])
 
         cur, skips = ch[0], []

@@ -1,4 +1,5 @@
-"""Stage-1 autoencoder (KL or VQ bottleneck), for inference.
+"""Stage-1 autoencoder (KL or VQ bottleneck), for inference, and the KL
+reparametrization the stage-2 trainer applies to stored latents.
 
 The encoder and decoder trunks are `nn.Sequential`s indexed like the
 original PyTorch implementation's (`encoder.down.{i}`, `decoder.up.{i}`,
@@ -119,6 +120,17 @@ class VAE(nn.Module):
         self.decoder = Decoder(arch)
         if arch.bottleneck == "vq":
             self.codebook = Codebook(arch.codebook_size, arch.z_dim)
+
+    @staticmethod
+    def reparametrize(latents: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """z from a stored (mean || log_var) map on the last axis, all fp32:
+        mean + noise * exp(log_var / 2) with log_var clipped to [-30, 20].
+        The diffusion trainer applies it to pre-extracted KL latents at
+        every step, with `noise` (fp32, the shape of mean) drawn by the
+        caller."""
+        mean, log_var = torch.chunk(latents.float(), 2, dim=-1)
+        std = torch.exp(0.5 * torch.clamp(log_var, -30.0, 20.0))
+        return mean + noise * std
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images -> the raw encoder map, NHWC: mean || log_var for the

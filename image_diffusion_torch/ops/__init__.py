@@ -9,7 +9,15 @@ Route of a self-attention site:
     everything else -- fp32 (verification) mode and the VAE's one-head
     d=384 mid-block site.
 
-On CPU tensors the kernel route runs the kernel's plain version.
+One route serves both directions.  With grad enabled (training), a
+"kernel" site runs as `attention.PackedAttention`: the forward kernel, and
+as its gradient the backward kernel of `csrc/packed_attention_bwd.cu`, at
+the same 14 UNet sites.  The JAX package's training ceiling on C
+(`packed_max_c`) was a TPU measurement and is not carried over: every
+site's forward and backward times on the H100 are in PERF.md.  A "plain"
+site is differentiated by autograd through the einsum path.
+
+On CPU tensors the kernel route runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -21,15 +29,21 @@ import torch
 
 from .attention import (
     HEAD_DIMS,
+    PackedAttention,
     packed_attention,
+    packed_attention_bwd,
     reference_attention,
     reference_packed_attention,
+    reference_packed_attention_bwd,
 )
 
 __all__ = [
+    "PackedAttention",
     "packed_attention",
+    "packed_attention_bwd",
     "reference_attention",
     "reference_packed_attention",
+    "reference_packed_attention_bwd",
     "log_site",
     "record_sites",
     "site_route",
