@@ -6,7 +6,7 @@
 Phases, one status line each; any failure exits non-zero:
   1. the card: name and power limit (nvidia-smi); python, torch, CUDA and
      triton versions;
-  2. build every kernel of the sampling and training paths from the
+  2. build every kernel of the sampling and both training paths from the
      sources in this checkout (nvcc, sm_90a, one process per source, all
      started together), with the build seconds and nvcc's release;
   3. the forward kernel against its plain PyTorch version at the shapes the
@@ -15,6 +15,11 @@ Phases, one status line each; any failure exits non-zero:
   3b. the backward kernel against its plain version at the same site
      shapes at the training batch (48, bf16, random dO), per operand, with
      the same times (library: SDPA's backward through autograd);
+  3c. the flash kernel against its plain version at the VAE's attention
+     site (one head, N 1024, D 384) at batches 27 (the grid's decode) and
+     48 (training), with the same times (library: SDPA, its backend named),
+     and the gradient through `FlashAttention` against autograd of the
+     plain version;
   4. the full-width UNet forward at batch 54 in bf16: kernel launches per
      forward, its device time by kernel (torch.profiler), and two rows
      against the same rows run on the CPU;
@@ -22,15 +27,25 @@ Phases, one status line each; any failure exits non-zero:
      (UNetArch(), VAEArch()) written and read back with
      `DiffusionPipeline.from_checkpoint`, the 27-image CFG grid over the
      1000-step DDPM schedule, then the dpm-20 grid as uint8 (and its
-     device busy time, torch.profiler), and a tiny pipeline on the card
-     against the CPU;
+     device busy time, torch.profiler), each grid's decode launching the
+     flash kernel once, and a tiny pipeline on the card against the CPU;
   6. training on the card: full-width UNet gradients at batch 2 through
      the kernel pair against the CPU's plain pair; 25 steps of the shipped
      config (`configs/diff-kl-lin-32x32.yaml`, batch 48, bf16 compute on
      fp32 parameters) through `image_diffusion_torch.scripts
      .train_diffusion` on synthetic latents, with ms/step, loss and
      gradient norm at each flush, and kernel launches per step; a resume
-     from its checkpoint; a torch.profiler trace of 3 train steps.
+     from its checkpoint; a torch.profiler trace of 3 train steps;
+  7. stage-1 training on the card: full-width VAE + discriminator + LPIPS
+     gradients at batch 2 through the flash kernel against the CPU's plain
+     version; 25 steps of `configs/vae-kl-32x32.yaml` (batch 48 of
+     128x128x3 uint8, bf16 compute on fp32 parameters, random LPIPS
+     weights from a file; only paths, epochs: 1, log_interval: 5 and
+     disc_start: 10 overridden) through `image_diffusion_torch.scripts
+     .train_vae` on synthetic images with a dev set whose last batch is
+     padded, with losses and imgs/s at each flush, ms/step, and flash
+     launches per step; a resume from its checkpoint; a torch.profiler
+     trace of 3 train steps.
 Then a JSON line of kernel records, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
@@ -52,6 +67,9 @@ B_GRID = 54               # 27 images x 2 (conditional + unconditional rows)
 B_TRAIN = 48              # the shipped config's batch_size
 TRAIN_STEPS = 25          # trainer steps in phase 6: 5 flushes of log_interval 5
 CONFIG = "configs/diff-kl-lin-32x32.yaml"
+VAE_CONFIG = "configs/vae-kl-32x32.yaml"
+VAE_TRAIN_STEPS = 25      # stage-1 trainer steps in phase 7, log_interval 5
+VAE_DISC_START = 10       # phase 7's disc_start: steps without and with the discriminator
 # (N tokens, C channels, heads) of the UNet's 14 self-attention sites, two each
 SITES = [(1024, 256, 8), (256, 384, 8), (64, 512, 8), (16, 512, 8),
          (64, 384, 8), (256, 256, 8), (1024, 128, 8)]
@@ -77,10 +95,39 @@ TINY_REL_L2 = 1e-1
 # projections are held to the looser SITE_GRAD_REL_L2
 GRAD_REL_L2 = 1e-1
 SITE_GRAD_REL_L2 = 2.5e-1
+# Phase 7 holds the stage-1 gradients to the same two bars: the VAE's, the
+# 2 sites' q/k/v weights', and the discriminator's d_loss gradient as its
+# fake and real terms apart.  At init those terms nearly cancel (their sum's
+# norm is ~15% of theirs), so the sum's relative error is several times its
+# terms' bf16 rounding; it is printed, not held
+# csrc/<name>.cu of every kernel the paths run
+KERNEL_SOURCES = ["packed_attention", "packed_attention_bwd", "flash_attention"]
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def ptxas_summary(text: str) -> list[str]:
+    """"kernel<template args>: registers, spill stores/loads" for each entry
+    function in ptxas' verbose output."""
+    import re
+
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"([A-Za-z_]*kernel)(I((?:Li\d+E)+)E)?", m.group(1))
+            name = k.group(1) if k else m.group(1)
+            if k and k.group(3):
+                name += "<" + ",".join(re.findall(r"Li(\d+)E", k.group(3))) + ">"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spill stores/loads {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name} {m.group(1)} registers, {spill}")
+    return out
 
 
 def rel_l2(a, b) -> float:
@@ -203,6 +250,87 @@ def phase_bwd_kernels(torch, F, attn):
         if not (max(ratios.values()) <= 1.0 and max(rels.values()) < BWD_REL_MAX):
             raise AssertionError(f"backward kernel disagrees with its plain version at N={N} C={C}")
     return sites
+
+
+def phase_flash_kernel(torch, F, attn):
+    """Phase 3c: the flash kernel against its plain version at the VAE's
+    attention site (one head, N = 32*32, D = 384) at the grid's decode batch
+    and the training batch, with times, and the gradient through
+    `FlashAttention` against autograd of the plain version."""
+    from torch.nn.attention import SDPBackend
+
+    N, D = 1024, 384
+    scale = 1.0 / D ** 0.5
+    batches = []
+    for B in (B_GRID // 2, B_TRAIN):
+        g = torch.Generator(device="cuda").manual_seed(3000 + B)
+        q, k, v = (torch.randn(B, 1, N, D, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        with torch.no_grad():
+            before = attn.flash_attention.launches
+            got = attn.flash_attention(q, k, v, scale)
+            ref = attn.reference_flash_attention(q, k, v, scale)
+            torch.cuda.synchronize()
+            launched = attn.flash_attention.launches - before
+            diff = (got.float() - ref.float()).abs()
+            max_abs = float(diff.max())
+            ratio = float((diff / (ATOL + RTOL * ref.float().abs())).max())
+            rel = max_abs / float(ref.float().abs().max())
+            del got, ref, diff
+            ms = cuda_ms(lambda: attn.flash_attention(q, k, v, scale), iters=20)
+            plain_ms = cuda_ms(lambda: attn.reference_flash_attention(q, k, v, scale), iters=5)
+            backend = SDPBackend(torch._fused_sdp_choice(q, k, v, scale=scale)).name
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters=20)
+
+        # the gradient: FlashAttention (kernel forward) vs the plain version's autograd
+        w = torch.randn(B, 1, N, D, generator=g, device="cuda").to(torch.bfloat16)
+        grads = []
+        for fn in (attn.flash_attention, attn.reference_flash_attention):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            before = attn.flash_attention.launches
+            (fn(*leaves, scale).float() * w.float()).sum().backward()
+            if fn is attn.flash_attention and attn.flash_attention.launches - before != 1:
+                raise AssertionError("FlashAttention with grad did not launch the kernel once")
+            grads.append([t.grad for t in leaves])
+        grad_rel = {}
+        for name, a, b in zip(("dq", "dk", "dv"), *grads):
+            grad_rel[name] = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+        del grads, w
+
+        flops, nbytes = 4 * B * N * N * D, 4 * B * N * D * 2
+        bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        row = dict(B=B, H=1, N=N, D=D, max_abs_err=max_abs, tol_ratio=ratio, rel_max=rel,
+                   grad_rel_max_by_operand=grad_rel, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   library_backend=backend, bound_ms=bound_ms,
+                   bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes")
+        batches.append(row)
+        log(f"phase 3c flash kernel B={B} H=1 N={N} D={D}: max|err|={max_abs:.3e} (tolerance ratio "
+            f"{ratio:.3f}, max|err|/max|plain| {rel:.3e}); gradient max|err|/max|plain| "
+            + " ".join(f"{n} {grad_rel[n]:.3e}" for n in grad_rel)
+            + f" (tolerance {BWD_REL_MAX}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+            f"({backend}) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({row['bound_by']})")
+        if not (launched == 1 and ratio <= 1.0 and rel < BWD_REL_MAX
+                and max(grad_rel.values()) < BWD_REL_MAX):
+            raise AssertionError(f"flash kernel disagrees with its plain version at B={B}")
+        del q, k, v
+    return batches
+
+
+def _random_lpips_file(torch, path: str) -> None:
+    """Random LPIPS weights in torchvision's VGG16 layout (He-scaled convs,
+    positive lin weights), saved as a torch state dict."""
+    from image_diffusion_torch.models.lpips import VGG16_STAGES
+
+    g = torch.Generator().manual_seed(0)
+    state, idx, cin = {}, 0, 3
+    for i, (cout, n_convs) in enumerate(VGG16_STAGES):
+        for _ in range(n_convs):  # features.{idx}: conv, then its ReLU at idx + 1
+            state[f"features.{idx}.weight"] = torch.randn(cout, cin, 3, 3, generator=g) * (2.0 / (cin * 9)) ** 0.5
+            state[f"features.{idx}.bias"] = torch.randn(cout, generator=g) * 0.05
+            cin, idx = cout, idx + 2
+        idx += 1  # the max pool
+        state[f"lin.{i}.weight"] = (torch.randn(1, cout, 1, 1, generator=g) * 0.1).abs()
+    torch.save(state, path)
 
 
 def _override(text: str, values: dict) -> str:
@@ -350,6 +478,205 @@ def phase_train(torch, np, attn, unet_state):
                 bwd_device_ms=bwd_ms, grad_rel_l2=whole, qkv_grad_rel_l2=qkv_err)
 
 
+def _stage1_grads(torch, cfg, dev, states, lpips, x_u8, draws):
+    """Gradients of one stage-1 step's two objectives at `dev` (bf16 compute
+    on fp32 parameters): the VAE's (percept + recon + prior + g_loss through
+    the discriminator) and the discriminator's d_loss, the latter as its
+    fake and its real term's, by parameter name; and the flash launches the
+    forward made."""
+    from image_diffusion_torch.models import build_discriminator, build_vae
+    from image_diffusion_torch.ops import attention as attn
+    from image_diffusion_torch.training.losses import D_LOSSES, G_LOSSES, recon_loss
+    from image_diffusion_torch.training.vae_trainer import normalize_batch
+
+    tc = cfg.train
+    vae = build_vae(cfg.arch, tc.compute_dtype, dev, param_dtype=torch.float32)
+    vae.load_state_dict(states[0])
+    disc = build_discriminator(tc.disc_channels, tc.compute_dtype, dev)
+    disc.load_state_dict(states[1])
+    percept = lpips.astype(tc.compute_dtype).to(dev)
+    x = normalize_batch(x_u8.to(dev), draws[0].to(dev))
+    before = attn.flash_attention.launches
+    x_hat, prior, _ = vae(x, sample=True, noise=draws[1].to(dev))
+    launches = attn.flash_attention.launches - before
+    x_hat = torch.clamp(x_hat.float(), -1.0, 1.0)
+    out_fake, out_real = disc(x_hat.detach()).float(), disc(x).float()
+    names, params = zip(*disc.named_parameters())
+    grads = {}
+    # d_loss is a sum of a fake and a real term: their gradients, apart
+    for half, d_loss in (("fake", D_LOSSES[tc.gan_loss](out_fake, out_real.detach())),
+                         ("real", D_LOSSES[tc.gan_loss](out_fake.detach(), out_real))):
+        grads.update((f"disc_{half}.{n}", g) for n, g in
+                     zip(names, torch.autograd.grad(d_loss, params, retain_graph=True)))
+    loss = (percept(x, x_hat) * tc.percept_weight + recon_loss(x, x_hat) * tc.recon_weight
+            + prior * tc.prior_weight + G_LOSSES[tc.gan_loss](disc(x_hat).float()) * tc.disc_weight)
+    names, params = zip(*vae.named_parameters())
+    grads.update(("vae." + n, g) for n, g in zip(names, torch.autograd.grad(loss, params)))
+    return {n: g.float().cpu() for n, g in grads.items()}, launches
+
+
+def phase_vae_train(torch, np, attn):
+    """Phase 7: stage-1 VAE-GAN training on the card."""
+    import csv
+
+    from image_diffusion_torch.core.config import VAEConfig
+    from image_diffusion_torch.models import build_discriminator, build_vae
+    from image_diffusion_torch.models.lpips import LPIPS
+    from image_diffusion_torch.scripts.train_vae import main as train_main
+    from image_diffusion_torch.training.vae_trainer import draw
+
+    cfg = VAEConfig.from_yaml(VAE_CONFIG)
+    with tempfile.TemporaryDirectory() as tmp:
+        lpips_path = os.path.join(tmp, "lpips.pth")
+        _random_lpips_file(torch, lpips_path)
+        lpips = LPIPS.from_torch_file(lpips_path)
+
+        # 1. full-width gradients at batch 2, card (flash kernel) vs CPU (plain version)
+        g = torch.Generator().manual_seed(7)
+        states = (build_vae(cfg.arch, torch.float32, "cpu", g).state_dict(),
+                  build_discriminator(cfg.train.disc_channels, torch.float32, "cpu", g).state_dict())
+        x_u8 = torch.randint(0, 256, (2, 128, 128, 3), generator=g, dtype=torch.uint8)
+        draws = draw(g, 2, (32, 32, cfg.arch.z_dim))
+        grads, secs, launches = [], [], []
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            got, n = _stage1_grads(torch, cfg, dev, states, lpips, x_u8, draws)
+            grads.append(got)
+            launches.append(n)
+            secs.append(time.perf_counter() - t0)
+        card, cpu = grads
+
+        def rel(names):
+            a = torch.cat([card[n].flatten() for n in names])
+            b = torch.cat([cpu[n].flatten() for n in names])
+            return float((a - b).norm() / b.norm())
+
+        vae_names = [n for n in cpu if n.startswith("vae.")]
+        fake_names = [n for n in cpu if n.startswith("disc_fake.")]
+        real_names = [n for n in cpu if n.startswith("disc_real.")]
+        for side in (card, cpu):  # d_loss's gradient: the sum of its terms'
+            side.update((f.replace("disc_fake.", "disc."), side[f] + side[r])
+                        for f, r in zip(fake_names, real_names))
+        d_loss_err = rel([f.replace("disc_fake.", "disc.") for f in fake_names])
+        qkv = [n for n in vae_names
+               if n.rsplit(".", 2)[-2] in ("to_q", "to_k", "to_v") and n.endswith("weight")]
+        site_names = sorted({n.rsplit(".", 2)[0] for n in qkv})
+        per_site = {s: rel([n for n in qkv if n.startswith(s + ".")]) for s in site_names}
+        errs = dict(vae=rel(vae_names), disc_fake=rel(fake_names), disc_real=rel(real_names),
+                    qkv=rel(qkv))
+        log(f"phase 7 gradients: full-width VAE + discriminator + LPIPS, batch 2, card vs CPU rel "
+            f"L2: VAE parameters {errs['vae']:.3e}, discriminator's fake and real terms "
+            f"{errs['disc_fake']:.3e} and {errs['disc_real']:.3e} (tolerance {GRAD_REL_L2}; their "
+            f"sum, not held, {d_loss_err:.3e}), to_q/to_k/to_v weights of {len(site_names)} sites "
+            f"{errs['qkv']:.3e} "
+            f"(tolerance {GRAD_REL_L2}), worst site {max(per_site.values()):.3e} (tolerance "
+            f"{SITE_GRAD_REL_L2}); flash launches on the card {launches[0]}; card {secs[0]:.1f} s, "
+            f"CPU {secs[1]:.1f} s")
+        if len(site_names) != 2 or launches[0] != 2 or not (
+                max(errs.values()) <= GRAD_REL_L2 and max(per_site.values()) <= SITE_GRAD_REL_L2):
+            raise AssertionError("full-width stage-1 gradients on the card disagree with the CPU")
+        del grads, card, cpu
+
+        # 2. the trainer through its entry point, 25 steps of the shipped config
+        rng = np.random.default_rng(0)
+        n_train, n_dev = VAE_TRAIN_STEPS * B_TRAIN, 2 * B_TRAIN + 4  # the dev tail: 4 of 48
+        np.save(os.path.join(tmp, "train.npy"), rng.integers(0, 256, (n_train, 128, 128, 3), dtype=np.uint8))
+        np.save(os.path.join(tmp, "dev.npy"), rng.integers(0, 256, (n_dev, 128, 128, 3), dtype=np.uint8))
+        with open(VAE_CONFIG) as f:
+            text = _override(f.read(), {
+                "train_set": os.path.join(tmp, "train.npy"), "dev_set": os.path.join(tmp, "dev.npy"),
+                "plot_set": os.path.join(tmp, "plot.npy"),
+                "checkpoints_dir": os.path.join(tmp, "ckpt"), "logs_dir": os.path.join(tmp, "logs"),
+                "epochs": 1, "log_interval": 5, "disc_start": VAE_DISC_START})
+        config = os.path.join(tmp, "config.yaml")
+        with open(config, "w") as f:
+            f.write(text)
+        args = ["--config", config, "--experiment-name", "smoke", "--no-mlflow",
+                "--lpips-weights", lpips_path]
+        attn.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = train_main(args)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_launches = attn.flash_attention.launches
+        dev_batches = -(-n_dev // B_TRAIN)
+        with open(os.path.join(tmp, "logs", "smoke_metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        flushes, dev = {}, {}
+        for r in rows:
+            if r["name"].startswith("dev/"):
+                dev[r["name"]] = float(r["value"])
+            else:
+                flushes.setdefault(int(r["step"]), {})[r["name"]] = float(r["value"])
+        steps = sorted(flushes)
+        later = [flushes[s]["util/imgs_per_sec"] for s in steps[1:]]
+        step_ms = sum(5 * B_TRAIN / ips for ips in later) / (5 * len(later)) * 1e3
+        for s in steps:
+            f = flushes[s]
+            loss = (f["vae/percept_loss"] * cfg.train.percept_weight
+                    + f["vae/recon_loss"] * cfg.train.recon_weight
+                    + f["vae/prior_loss"] * cfg.train.prior_weight)
+            gan = (f"d_loss {f['gan/d_loss']:.5f}, g_loss {f['gan/g_loss']:.5f}, fake_acc "
+                   f"{f['gan/fake_acc']:.3f}, real_acc {f['gan/real_acc']:.3f}"
+                   if "gan/d_loss" in f else "discriminator inactive")
+            log(f"phase 7 train flush at step {s + 1}: loss {loss:.5f} (recon {f['vae/recon_loss']:.5f}, "
+                f"percept {f['vae/percept_loss']:.5f}, prior {f['vae/prior_loss']:.3f}), "
+                f"vae grad {f['vae/vae_grad']:.4f}; {gan}; {f['util/imgs_per_sec']:.1f} imgs/s")
+        st = trainer.state
+        ckpt = os.path.join(tmp, "ckpt", "smoke", "vae-epoch-00.ckpt")
+        finite = all(np.isfinite(list(f.values())).all() for f in flushes.values())
+        gan_flushes = [s for s in steps if "gan/d_loss" in flushes[s]]
+        fp32 = all(p.dtype == torch.float32 for p in st.vae_opt.params + st.disc_opt.params)
+        log(f"phase 7 trainer: {st.step} steps ({st.disc_opt.count} with the discriminator) in "
+            f"{run_s:.1f} s through image_diffusion_torch.scripts.train_vae (set-up, dev "
+            f"evaluation and checkpoint included); {step_ms:.2f} ms/step after the first 5 "
+            f"({B_TRAIN / step_ms * 1e3:.1f} imgs/s); flash launches {run_launches} = "
+            f"{VAE_TRAIN_STEPS} steps x 2 + {dev_batches} dev batches x 2; dev recon "
+            f"{dev.get('dev/recon_loss', float('nan')):.5f}, percept "
+            f"{dev.get('dev/percept_loss', float('nan')):.5f}; fp32 parameters {fp32}; "
+            f"checkpoint written {os.path.exists(ckpt)}")
+        if not (st.step == VAE_TRAIN_STEPS and st.disc_opt.count == VAE_TRAIN_STEPS - VAE_DISC_START
+                and len(steps) == VAE_TRAIN_STEPS // 5 and finite and fp32
+                and gan_flushes == [s for s in steps if s >= VAE_DISC_START]
+                and set(dev) == {"dev/recon_loss", "dev/percept_loss"}
+                and np.isfinite(list(dev.values())).all() and os.path.exists(ckpt)):
+            raise AssertionError("stage-1 trainer: wrong step counts, non-finite metrics, the "
+                                 "discriminator active at the wrong steps, or no checkpoint")
+        if run_launches != 2 * (VAE_TRAIN_STEPS + dev_batches):
+            raise AssertionError(f"stage-1 trainer: {run_launches} flash launches, expected 2 per "
+                                 f"step and per dev batch")
+
+        # 3. resume from the checkpoint: step, parameters, BN statistics and moments equal
+        resumed = train_main(args + ["--checkpoint", ckpt]).state
+
+        def tensors(s):
+            return (s.vae_opt.params + s.disc_opt.params + sum(s.vae_opt.moments(), [])
+                    + sum(s.disc_opt.moments(), []) + list(s.disc.buffers()))
+
+        same = ((resumed.step, resumed.disc_opt.count) == (st.step, st.disc_opt.count)
+                and all(torch.equal(a, b) for a, b in zip(tensors(st), tensors(resumed))))
+        log(f"phase 7 resume: step {resumed.step}, discriminator updates {resumed.disc_opt.count}; "
+            f"parameters, BatchNorm statistics and both Adams' moments equal: {same}")
+        if not same:
+            raise AssertionError("stage-1 resume: step, parameters, statistics or moments differ")
+        del resumed
+
+        # 4. profile 3 train steps with the discriminator active
+        x_dev = torch.from_numpy(np.load(os.path.join(tmp, "train.npy"))[:B_TRAIN]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prof, kernels, wall = device_profile(
+        torch, lambda: trainer.train_step(st, x_dev, gen, disc_active=True), iters=3)
+    busy = sum(prof.values())
+    flash_ms = sum(v for k, v in prof.items() if "flash_attention_kernel" in k)
+    top = sorted(prof.items(), key=lambda kv: -kv[1])[:6]
+    log(f"phase 7 profile: device busy {busy:.3f} ms of a {wall:.3f} ms train step "
+        f"(idle share {idle_share(busy, wall)}); {kernels:.0f} kernels per step; flash_attention "
+        f"{flash_ms:.3f} ms; top: " + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top))
+    return dict(step_ms=step_ms, busy_ms=busy, wall_ms=wall, launches=run_launches,
+                flash_device_ms=flash_ms, grad_rel_l2=errs)
+
+
 def main() -> int:
     import torch
 
@@ -368,7 +695,7 @@ def main() -> int:
     from image_diffusion_torch import ops
     from image_diffusion_torch.core.config import ScheduleConfig, UNetArch, VAEArch
     from image_diffusion_torch.models import build_unet, build_vae
-    from image_diffusion_torch.ops.build import build, nvcc
+    from image_diffusion_torch.ops.build import BUILD_OUTPUT, build, nvcc
     from image_diffusion_torch.pipelines import DiffusionPipeline
 
     # phase 1: the card
@@ -386,13 +713,16 @@ def main() -> int:
     nvcc_version = subprocess.run([nvcc(), "--version"], capture_output=True, text=True,
                                   check=True, timeout=60).stdout.strip().splitlines()[-1]
     t0 = time.perf_counter()
-    build(["packed_attention", "packed_attention_bwd"])
-    log(f"phase 2 build: packed_attention.cu and packed_attention_bwd.cu in "
+    build(KERNEL_SOURCES)
+    log(f"phase 2 build: packed_attention.cu, packed_attention_bwd.cu and flash_attention.cu in "
         f"{time.perf_counter() - t0:.1f} s ({nvcc_version})")
+    for source in KERNEL_SOURCES:
+        log(f"phase 2 ptxas {source}.cu: " + "; ".join(ptxas_summary(BUILD_OUTPUT[source])))
 
     # phase 3: kernels against their plain versions
     sites = phase_kernels(torch, F, attn)
     bwd_sites = phase_bwd_kernels(torch, F, attn)
+    flash_batches = phase_flash_kernel(torch, F, attn)
 
     # phase 4: full-width UNet forward on the card, two rows against the CPU
     gen = torch.Generator().manual_seed(0)
@@ -448,32 +778,36 @@ def main() -> int:
     log(f"phase 5 bundle: written and loaded on {pipe.device} in {load_s:.1f} s")
 
     scales = list(range(1, 10))
-    attn.packed_attention.launches = 0
+    attn.packed_attention.launches = attn.flash_attention.launches = 0
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     imgs = pipe.sample(scales, seed=0, sampler="ddpm")
     torch.cuda.synchronize()
     ddpm_s = time.perf_counter() - t1
     main_launches = attn.packed_attention.launches
+    grid_flash = attn.flash_attention.launches
     n_imgs = imgs.shape[0]
     log(f"phase 5 ddpm-1000 grid: {tuple(imgs.shape)} {imgs.dtype} in {ddpm_s:.2f} s "
-        f"({n_imgs / ddpm_s:.3f} img/s); {main_launches} kernel launches; "
-        f"range [{float(imgs.min()):.3f}, {float(imgs.max()):.3f}]")
+        f"({n_imgs / ddpm_s:.3f} img/s); {main_launches} packed kernel launches, {grid_flash} "
+        f"flash kernel launch (the decode); range [{float(imgs.min()):.3f}, {float(imgs.max()):.3f}]")
     if imgs.shape != (27, 128, 128, 3) or not torch.isfinite(imgs).all():
         raise AssertionError("ddpm grid: wrong shape or non-finite images")
-    if main_launches != 14 * 1000:
-        raise AssertionError(f"ddpm grid: {main_launches} launches, expected 14 x 1000")
+    if main_launches != 14 * 1000 or grid_flash != 1:
+        raise AssertionError(f"ddpm grid: {main_launches} packed and {grid_flash} flash launches, "
+                             f"expected 14 x 1000 and 1")
 
-    attn.packed_attention.launches = 0
+    attn.packed_attention.launches = attn.flash_attention.launches = 0
     t1 = time.perf_counter()
     u8 = pipe.sample(scales, seed=0, sampler="dpm", num_inference_steps=20, output="uint8")
     torch.cuda.synchronize()
     dpm_s = time.perf_counter() - t1
     dpm_launches = attn.packed_attention.launches
+    dpm_flash = attn.flash_attention.launches
     log(f"phase 5 dpm-20 grid: {tuple(u8.shape)} {u8.dtype} in {dpm_s:.3f} s "
-        f"({n_imgs / dpm_s:.3f} img/s); {dpm_launches} kernel launches; "
-        f"pixel mean {float(u8.float().mean()):.2f}")
-    if u8.shape != (27, 128, 128, 3) or u8.dtype != torch.uint8 or dpm_launches != 14 * 20:
+        f"({n_imgs / dpm_s:.3f} img/s); {dpm_launches} packed kernel launches, {dpm_flash} flash "
+        f"kernel launch; pixel mean {float(u8.float().mean()):.2f}")
+    if (u8.shape != (27, 128, 128, 3) or u8.dtype != torch.uint8 or dpm_launches != 14 * 20
+            or dpm_flash != 1):
         raise AssertionError("dpm grid: wrong shape, dtype or launch count")
     dpm_prof, dpm_kernels, dpm_wall = device_profile(torch, lambda: pipe.sample(
         scales, seed=0, sampler="dpm", num_inference_steps=20, output="uint8"), iters=1)
@@ -503,6 +837,10 @@ def main() -> int:
 
     # phase 6: training on the card
     train = phase_train(torch, np, attn, unet_state)
+    torch.cuda.empty_cache()
+
+    # phase 7: stage-1 training on the card
+    vae_train = phase_vae_train(torch, np, attn)
 
     per_forward = {k: 2 * sum(s[k] for s in sites) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     bound_ops = 2 * sum(s["bound_ms"] for s in sites if s["bound_by"] == "operations")
@@ -531,12 +869,26 @@ def main() -> int:
         "bound_by": "operations" if bwd_bound_ops > per_backward["bound_ms"] / 2 else "bytes",
         "per": "one UNet backward at batch 48: 14 sites, two of each shape in sites",
         "sites": bwd_sites,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "image_diffusion_torch/ops/csrc/flash_attention.cu",
+        "replaces": "image_diffusion_tpu/ops/pallas/attention.py:40",
+        "launches": vae_train["launches"],
+        "max_abs_err": max(b["max_abs_err"] for b in flash_batches),
+        **{k: flash_batches[-1][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "per": "one call at the VAE's attention site, B=48 (the training batch), H=1, N=1024, D=384",
+        "batches": flash_batches,
     }], "unet_forward_ms": fwd_ms, "unet_forward_device_busy_ms": busy_ms,
         "ddpm_grid_s": ddpm_s, "dpm20_grid_s": dpm_s, "dpm20_grid_device_busy_ms": dpm_busy,
         "dpm20_launches": dpm_launches, "train_step_ms": train["step_ms"],
         "train_step_device_busy_ms": train["busy_ms"], "train_step_profiled_ms": train["wall_ms"],
         "train_launches": train["launches"], "train_grad_rel_l2": train["grad_rel_l2"],
-        "train_qkv_grad_rel_l2": train["qkv_grad_rel_l2"]}
+        "train_qkv_grad_rel_l2": train["qkv_grad_rel_l2"], "grid_flash_launches": grid_flash,
+        "vae_train_step_ms": vae_train["step_ms"], "vae_train_step_device_busy_ms": vae_train["busy_ms"],
+        "vae_train_step_profiled_ms": vae_train["wall_ms"], "vae_train_flash_launches": vae_train["launches"],
+        "vae_train_flash_device_ms": vae_train["flash_device_ms"],
+        "vae_train_grad_rel_l2": vae_train["grad_rel_l2"]}
     log(json.dumps(record))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,10 +7,11 @@ Module paths map to the original PyTorch implementation's names (the same
 mapping as the JAX package's export tool).  One table of (flax module
 path, torch module name, kind) entries per model serves both directions.
 
-The trainer's optimizer state is the `to_state_dict` form of the JAX
-trainer's `optax.chain(clip_by_global_norm, adam(schedule))` state: Adam's
-`mu`/`nu` trees map to torch's `exp_avg`/`exp_avg_sq` through the same
-parameter table, and both `count`s are the step.
+A trainer's optimizer state is the `to_state_dict` form of the JAX
+trainers' `optax.chain(clip_by_global_norm, adam(schedule))` state: Adam's
+`mu`/`nu` trees map to torch's `exp_avg`/`exp_avg_sq` through the model's
+parameter table, and both `count`s are the number of updates.  The
+discriminator's BatchNorm running statistics are flax's `batch_stats`.
 """
 
 from __future__ import annotations
@@ -130,27 +131,64 @@ def unet_flax_params(state: Mapping[str, torch.Tensor]) -> dict:
     return params
 
 
-def adam_tree(step: int, exp_avg: Mapping[str, torch.Tensor],
-              exp_avg_sq: Mapping[str, torch.Tensor], clipped: bool) -> dict:
-    """The UNet trainer's optax state tree from Adam's moments (keyed like
-    the UNet state dict) at `step` updates.  `clipped`: the chain starts
-    with clip_by_global_norm, whose state is empty."""
-    adam = {"count": np.asarray(step, dtype=np.int32), "mu": unet_flax_params(exp_avg),
-            "nu": unet_flax_params(exp_avg_sq)}
+def adam_tree(step: int, mu: Mapping, nu: Mapping, clipped: bool) -> dict:
+    """A trainer's optax state tree at `step` updates from Adam's moments
+    `mu`, `nu` as flax trees shaped like the parameters.  `clipped`: the
+    chain starts with clip_by_global_norm, whose state is empty."""
+    adam = {"count": np.asarray(step, dtype=np.int32), "mu": mu, "nu": nu}
     inner = {"0": adam, "1": {"count": np.asarray(step, dtype=np.int32)}}
     return {"0": {}, "1": inner} if clipped else inner
 
 
-def adam_state(tree: Mapping) -> tuple[int, dict[str, torch.Tensor], dict[str, torch.Tensor]]:
-    """-> (count, exp_avg, exp_avg_sq) from a UNet trainer's optax state
-    tree, clipped or not; the moments keyed like the UNet state dict."""
+def adam_moments(tree: Mapping) -> tuple[int, Mapping, Mapping]:
+    """-> (count, mu, nu) of a trainer's optax state tree, clipped or not;
+    the moments as flax trees shaped like the parameters."""
     adam = (tree if "mu" in tree["0"] else tree["1"])["0"]
-    moments = []
-    for name in ("mu", "nu"):
-        state = unet_state_dict(adam[name])
-        del state["time_embedding.factor"]  # a buffer, not a parameter
-        moments.append(state)
-    return int(np.asarray(adam["count"])), moments[0], moments[1]
+    return int(np.asarray(adam["count"])), adam["mu"], adam["nu"]
+
+
+# The PatchGAN: flax `conv_{i}` (HWIO kernel, bias on the first and last)
+# and `bn_{i}` (scale, bias; batch_stats mean, var) <-> torch `convs.{i}`
+# and `norms.{i}` (weight, bias; running_mean, running_var).
+
+
+def disc_state_dict(params: Mapping, batch_stats: Mapping | None = None) -> dict[str, torch.Tensor]:
+    """Discriminator flax params (and batch_stats) -> the port's state dict
+    (parameters, and the running statistics when `batch_stats` is given)."""
+    out = {}
+    for name, leaves in params.items():
+        kind, i = name.rsplit("_", 1)
+        if kind == "conv":
+            out[f"convs.{i}.weight"] = np.asarray(leaves["kernel"]).transpose(3, 2, 0, 1)
+            if "bias" in leaves:
+                out[f"convs.{i}.bias"] = leaves["bias"]
+        else:
+            out[f"norms.{i}.weight"], out[f"norms.{i}.bias"] = leaves["scale"], leaves["bias"]
+    for name, leaves in (batch_stats or {}).items():
+        i = name.rsplit("_", 1)[1]
+        out[f"norms.{i}.running_mean"], out[f"norms.{i}.running_var"] = leaves["mean"], leaves["var"]
+    return _tensors(out)
+
+
+def disc_flax_params(state: Mapping[str, torch.Tensor]) -> dict:
+    """The discriminator's parameters (keyed like `named_parameters`; any
+    running statistics are skipped) -> flax params of numpy fp32 arrays."""
+    params: dict = {}
+    for key, val in _numpy(state).items():
+        group, i, leaf = key.split(".")
+        if group == "convs":
+            _put(params, (f"conv_{i}", "kernel" if leaf == "weight" else "bias"),
+                 val.transpose(2, 3, 1, 0) if leaf == "weight" else val)
+        elif leaf in ("weight", "bias"):
+            _put(params, (f"bn_{i}", "scale" if leaf == "weight" else "bias"), val)
+    return params
+
+
+def disc_flax_stats(state: Mapping[str, torch.Tensor]) -> dict:
+    """The discriminator's running statistics -> flax batch_stats."""
+    state = _numpy(state)
+    return {f"bn_{k.split('.')[1]}": {"mean": state[k], "var": state[k[:-len("mean")] + "var"]}
+            for k in state if k.endswith(".running_mean")}
 
 
 # VAE trunks: flax `layers_{i}` <-> torch `{encoder.down|decoder.up}.{i}`,

@@ -191,6 +191,27 @@ class TrainCommon:
 
 
 @dataclass(frozen=True)
+class VAETrainConfig(TrainCommon):
+    """Stage-1 trainer hyperparameters (configs/vae-*-32x32.yaml)."""
+
+    recon_weight: float = 1.0
+    percept_weight: float = 1.0
+    prior_weight: float = 5e-6
+    disc_weight: float = 0.1
+    disc_start: int = 15000
+    gan_loss: str = "bce"  # "bce" | "mse" | "hinge"
+    disc_channels: tuple[int, ...] = (64, 128, 256)
+    train_set: str = "./data/vqgan/train.npy"
+    dev_set: str = "./data/vqgan/dev.npy"
+    plot_set: str = "./data/vqgan/plot.npy"
+    log_imgs_freq: int = 500
+
+    def __post_init__(self):
+        if self.gan_loss not in ("bce", "mse", "hinge"):
+            raise ValueError(f"gan_loss must be bce/mse/hinge, got {self.gan_loss!r}")
+
+
+@dataclass(frozen=True)
 class DiffusionTrainConfig(TrainCommon):
     """Stage-2 trainer hyperparameters (configs/diff-kl-*-32x32.yaml)."""
 
@@ -203,6 +224,18 @@ class DiffusionTrainConfig(TrainCommon):
     ema_decay: float | None = None
     train_set: str = "./data/diffusion/kl/train.npy"
     train_labels: str = "./data/diffusion/kl/train_labels.npy"
+
+
+@dataclass(frozen=True)
+class VAEConfig:
+    arch: VAEArch
+    train: VAETrainConfig
+
+    @classmethod
+    def from_yaml(cls, path: str, **overrides) -> "VAEConfig":
+        raw = parse_config(path)
+        raw.update(overrides)
+        return cls(arch=_build(VAEArch, raw), train=_build(VAETrainConfig, raw))
 
 
 @dataclass(frozen=True)

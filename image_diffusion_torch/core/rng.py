@@ -5,7 +5,8 @@ The JAX package threads `jax.random` keys (`root_key`, `epoch_key`,
 keeps their semantics with integer seeds: the run seed offset by the
 configured epoch count (resumed sub-runs draw fresh data order and noise),
 a per-epoch seed, and from it the numpy shuffle seed and the
-`torch.Generator` of the epoch's per-step draws.
+`torch.Generator`s of the epoch's per-step draws and of its dev
+evaluation.
 """
 
 from __future__ import annotations
@@ -37,4 +38,10 @@ def step_generator(seed: int, device: str | torch.device = "cpu") -> torch.Gener
     """The generator, on `device`, of an epoch's per-step draws (KL noise,
     timesteps, diffusion noise, condition dropout)."""
     sub = int(np.random.SeedSequence((seed, 1)).generate_state(1, np.uint64)[0] >> 1)
+    return torch.Generator(device=device).manual_seed(sub)
+
+
+def eval_generator(seed: int, device: str | torch.device = "cpu") -> torch.Generator:
+    """The generator, on `device`, of an epoch's dev-evaluation draws."""
+    sub = int(np.random.SeedSequence((seed, 2)).generate_state(1, np.uint64)[0] >> 1)
     return torch.Generator(device=device).manual_seed(sub)

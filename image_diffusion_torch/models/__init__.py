@@ -1,4 +1,5 @@
-"""Model zoo of the sampling path: VAE (KL/VQ) and the UNet denoiser."""
+"""Model zoo: VAE (KL/VQ), the UNet denoiser, and stage-1 training's
+discriminator and LPIPS."""
 
 from __future__ import annotations
 
@@ -6,11 +7,14 @@ import torch
 
 from ..core import resolve_device
 from ..core.config import UNetArch, VAEArch
+from .discriminator import Discriminator, build_discriminator
 from .layers import materialize
+from .lpips import LPIPS, try_load_lpips
 from .unet import UNet
 from .vae import VAE, Codebook, Decoder, Encoder
 
-__all__ = ["VAE", "UNet", "Encoder", "Decoder", "Codebook", "build_vae", "build_unet"]
+__all__ = ["VAE", "UNet", "Encoder", "Decoder", "Codebook", "Discriminator", "LPIPS",
+           "build_discriminator", "build_vae", "build_unet", "try_load_lpips"]
 
 
 def _build(cls, arch, dtype, device, generator, param_dtype=None):
@@ -25,10 +29,13 @@ def _build(cls, arch, dtype, device, generator, param_dtype=None):
 
 
 def build_vae(arch: VAEArch, dtype: torch.dtype = torch.bfloat16, device="cuda",
-              generator: torch.Generator | None = None) -> VAE:
-    """The VAE on `device`, weights drawn from `generator` or zero (to be
-    loaded with `load_state_dict`)."""
-    return _build(VAE, arch, dtype, device, generator)
+              generator: torch.Generator | None = None,
+              param_dtype: torch.dtype | None = None) -> VAE:
+    """The VAE on `device` computing in `dtype`, weights drawn from
+    `generator` or zero (to be loaded with `load_state_dict`).  Conv and
+    linear weights are held in `param_dtype` (default: `dtype`); training
+    passes float32 (see `models/layers.py`)."""
+    return _build(VAE, arch, dtype, device, generator, param_dtype)
 
 
 def build_unet(arch: UNetArch, dtype: torch.dtype = torch.bfloat16, device="cuda",

@@ -16,7 +16,8 @@ Numerics follow the JAX package's layers:
   * GroupNorm: var = max(E[x^2] - E[x]^2, 0), eps 1e-5; in bf16 mode the
     per-element affine x*a + b runs in bf16 from fp32-computed a, b.
   * SpatialSelfAttention: GN pre-norm, separate q/k/v, contiguous "(h d)"
-    head split, residual add inside.
+    head split, residual add inside; the attention itself takes the route
+    `ops.site_route` gives the site.
   * Downsample: 3x3 stride-2 VALID conv, then a (0,1,0,1) zero pad.
   * Upsample: nearest 2x, then a 3x3 conv.
   * TimeEmbedding: factor 10000^(i/half), concat(sin, cos), cast to the
@@ -36,10 +37,12 @@ from .. import ops
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d whose weight and bias are cast to the input's dtype at use."""
+    """nn.Conv2d whose weight and bias (if any) are cast to the input's
+    dtype at use."""
 
     def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class Linear(nn.Linear):
@@ -120,6 +123,9 @@ class SpatialSelfAttention(nn.Module):
         q, k, v = self.to_q(tokens), self.to_k(tokens), self.to_v(tokens)
         if route == "kernel":
             attn = ops.packed_attention(q, k, v, self.num_heads)
+        elif route == "flash":
+            heads = (ops.split_heads(t, self.num_heads).contiguous() for t in (q, k, v))
+            attn = ops.merge_heads(ops.flash_attention(*heads, 1.0 / math.sqrt(C // self.num_heads)))
         else:
             attn = ops.reference_attention(q, k, v, self.num_heads)
         out = self.out_proj(attn)

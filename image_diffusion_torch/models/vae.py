@@ -1,16 +1,20 @@
-"""Stage-1 autoencoder (KL or VQ bottleneck), for inference, and the KL
-reparametrization the stage-2 trainer applies to stored latents.
+"""Stage-1 autoencoder (KL or VQ bottleneck): the roundtrip forward of
+KL training, inference, and the KL reparametrization the stage-2 trainer
+applies to stored latents.
 
 The encoder and decoder trunks are `nn.Sequential`s indexed like the
 original PyTorch implementation's (`encoder.down.{i}`, `decoder.up.{i}`,
 parameterless SiLUs holding an index), so its state dicts load as they
 are.  The decoder tracks attention resolutions from the true latent
 resolution (the original's bookkeeping was off by one level; no shipped
-config has attention there, so outputs agree).
+config has attention there, so outputs agree).  The encoder's and the
+decoder's mid-block attention (one head, d = the widest channel count,
+384 in the shipped config) take the flash kernel in bf16 (`ops.site_route`).
 
 The VQ codebook is inference-only here: it holds the embeddings (and the
-EMA statistics, so a trained state loads strictly) and finds nearest
-codes in fp32; its EMA update belongs to stage-1 training.
+EMA statistics, so a trained state loads strictly), finds nearest codes in
+fp32 and reports the commitment loss and perplexity; its EMA update, VQ
+training, is not ported yet.
 """
 
 from __future__ import annotations
@@ -104,10 +108,19 @@ class Codebook(nn.Module):
     def quantize(self, z: torch.Tensor) -> torch.Tensor:
         """NHWC latents -> nearest codes, fp32, through the straight-through
         form flat + (quant - flat) the training path uses."""
+        return self.lookup(z)[0]
+
+    def lookup(self, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """-> (quantize(z), mean squared distance to the codes (fp32), the
+        codes' usage perplexity exp(-sum p log(p + 1e-6)))."""
         flat = z.reshape(-1, z.shape[-1]).float()
         emb = self.embeddings.weight.float()
-        quant = emb[nearest_code(flat, emb)]
-        return (flat + (quant - flat)).reshape(z.shape)
+        idx = nearest_code(flat, emb)
+        quant = emb[idx]
+        probs = torch.bincount(idx, minlength=emb.shape[0]).float() / idx.numel()
+        perplexity = torch.exp(-torch.sum(probs * torch.log(probs + 1e-6)))
+        commitment = torch.mean((quant.detach() - flat) ** 2)
+        return (flat + (quant - flat).detach()).reshape(z.shape), commitment, perplexity
 
 
 class VAE(nn.Module):
@@ -132,10 +145,44 @@ class VAE(nn.Module):
         std = torch.exp(0.5 * torch.clamp(log_var, -30.0, 20.0))
         return mean + noise * std
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC images -> the raw encoder map, NHWC: mean || log_var for the
-        KL bottleneck, pre-quantization latents for VQ."""
-        return self.encoder(x.to(self.dtype).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    def forward(self, x: torch.Tensor, sample: bool | None = None,
+                noise: torch.Tensor | None = None):
+        """NHWC images -> (x_hat NHWC in the compute dtype, prior loss,
+        perplexity), the roundtrip of stage-1 training.  KL decodes the
+        reparametrized z when `sample` (the default for KL), else the
+        posterior mean; `noise` as in `encode`."""
+        if sample is None:
+            sample = self.arch.bottleneck == "kl"
+        z, prior, perplexity = self.encode(x, sample=sample, noise=noise)
+        if self.arch.bottleneck == "kl" and not sample:
+            z = z[..., : self.arch.z_dim]
+        return self.decode(z), prior, perplexity
+
+    def encode(self, x: torch.Tensor, sample: bool = False, noise: torch.Tensor | None = None):
+        """NHWC images -> (z, prior loss, perplexity), the JAX `encode`.
+
+        KL: the encoder's mean || log_var map with log_var clipped to
+        [-30, 20]; the prior loss is the KL divergence summed over H, W, C
+        and averaged over the batch (fp32).  With `sample`, z = mean + noise
+        * exp(log_var / 2) in the compute dtype, `noise` (fp32, the shape of
+        mean; drawn here when None) being the reparametrization draw; else
+        z is the raw map, the format of stored latents.  Perplexity is 0.
+        VQ: the nearest codes (straight-through), beta times the commitment
+        loss, and the batch's code perplexity."""
+        raw = self.encoder(x.to(self.dtype).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if self.arch.bottleneck == "vq":
+            if sample:
+                raise ValueError("Cannot sample from the VQ model!")
+            quant, commitment, perplexity = self.codebook.lookup(raw)
+            return quant.to(self.dtype), self.arch.codebook_beta * commitment, perplexity
+        mean, log_var = torch.chunk(raw.float(), 2, dim=-1)
+        log_var = torch.clamp(log_var, -30.0, 20.0)
+        kl = -0.5 * torch.sum(1.0 + log_var - mean**2 - torch.exp(log_var), dim=(1, 2, 3))
+        if sample:
+            if noise is None:
+                noise = torch.randn_like(mean)
+            raw = (mean + noise * torch.exp(0.5 * log_var)).to(self.dtype)
+        return raw, kl.mean(), kl.new_zeros(())
 
     def decode(self, z: torch.Tensor, quantize: bool = False) -> torch.Tensor:
         """NHWC latents -> NHWC images in the compute dtype; `quantize`

@@ -1,23 +1,27 @@
 """Attention-site routing, the site log, and the attention functions.
 
-Route of a self-attention site:
-  * "kernel": the packed-attention kernel (`attention.packed_attention`),
-    for every site whose compute dtype is bf16, whose head dim is a
-    multiple of 16 no larger than 64, and whose token count is a multiple
-    of 16 -- all 14 UNet sites of the shipped config (d = 16/32/48/64);
+Route of a self-attention site, decided by its compute dtype, head dim d
+and token count N:
+  * "kernel": the packed-attention kernel pair (`attention.packed_attention`)
+    for a bf16 site with d a multiple of 16 no larger than 64 and N a
+    multiple of 16 -- all 14 UNet sites of the shipped config
+    (d = 16/32/48/64).  With grad enabled it runs as
+    `attention.PackedAttention`: the forward kernel, and as its gradient
+    the backward kernel of `csrc/packed_attention_bwd.cu`;
+  * "flash": the blockwise kernel (`attention.flash_attention`, heads split
+    to the (B, H, N, D) layout) for a bf16 site whose d is in
+    `FLASH_HEAD_DIMS` and N a multiple of its 64-row tile -- the VAE's two
+    one-head d=384 mid-block sites (N = 1024 at 128x128 images).  With grad
+    enabled it runs as `attention.FlashAttention`, whose gradient is
+    autograd of the einsum path, as in the JAX package;
   * "plain": the einsum path (`attention.reference_attention`) for
-    everything else -- fp32 (verification) mode and the VAE's one-head
-    d=384 mid-block site.
+    everything else, fp32 (verification) mode included, differentiated by
+    autograd.
 
-One route serves both directions.  With grad enabled (training), a
-"kernel" site runs as `attention.PackedAttention`: the forward kernel, and
-as its gradient the backward kernel of `csrc/packed_attention_bwd.cu`, at
-the same 14 UNet sites.  The JAX package's training ceiling on C
-(`packed_max_c`) was a TPU measurement and is not carried over: every
-site's forward and backward times on the H100 are in PERF.md.  A "plain"
-site is differentiated by autograd through the einsum path.
-
-On CPU tensors the kernel route runs the kernels' plain versions.
+The JAX package's ceilings on C (`packed_max_c`) and its 128-lane grouping
+exclusion were TPU measurements and are not carried over; every site's
+times on the H100 are in PERF.md.  On CPU tensors the kernel routes run the
+kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -28,22 +32,36 @@ from contextlib import contextmanager
 import torch
 
 from .attention import (
+    FLASH_HEAD_DIMS,
+    FLASH_TILE,
     HEAD_DIMS,
+    FlashAttention,
     PackedAttention,
+    flash_attention,
+    merge_heads,
     packed_attention,
     packed_attention_bwd,
     reference_attention,
+    reference_attention_heads,
+    reference_flash_attention,
     reference_packed_attention,
     reference_packed_attention_bwd,
+    split_heads,
 )
 
 __all__ = [
+    "FlashAttention",
     "PackedAttention",
+    "flash_attention",
+    "merge_heads",
     "packed_attention",
     "packed_attention_bwd",
     "reference_attention",
+    "reference_attention_heads",
+    "reference_flash_attention",
     "reference_packed_attention",
     "reference_packed_attention_bwd",
+    "split_heads",
     "log_site",
     "record_sites",
     "site_route",
@@ -51,10 +69,15 @@ __all__ = [
 
 
 def site_route(N: int, C: int, num_heads: int, dtype: torch.dtype) -> str:
-    """"kernel" or "plain" for a self-attention site (see module doc)."""
-    if (dtype == torch.bfloat16 and C % num_heads == 0
-            and C // num_heads in HEAD_DIMS and N % 16 == 0):
+    """"kernel", "flash" or "plain" for a self-attention site (see module
+    doc)."""
+    if dtype != torch.bfloat16 or C % num_heads:
+        return "plain"
+    d = C // num_heads
+    if d in HEAD_DIMS and N % 16 == 0:
         return "kernel"
+    if d in FLASH_HEAD_DIMS and N % FLASH_TILE == 0:
+        return "flash"
     return "plain"
 
 

@@ -19,9 +19,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# nvcc's output (ptxas' registers, shared memory and spills per kernel) of
+# each source built by this process
+BUILD_OUTPUT: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -60,8 +63,9 @@ def build(names: list[str]) -> list[Path]:
     failed = []
     for name, path, tmp, proc in jobs:
         out, _ = proc.communicate()
+        BUILD_OUTPUT[name] = out.decode(errors="replace")
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out.decode(errors='replace')}")
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{BUILD_OUTPUT[name]}")
             continue
         os.replace(tmp, path)
     if failed:

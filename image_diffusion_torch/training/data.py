@@ -6,7 +6,8 @@
   * batches cross to the card in their storage dtype (fp16 latents, uint8
     labels) from pinned host memory with non-blocking copies, PREFETCH
     batches ahead of the one in use; the step casts them;
-  * the trailing partial batch is dropped.
+  * the trailing partial batch is dropped in training; evaluation
+    (`eval_batches`) pads it instead, so every sample counts once.
 """
 
 from __future__ import annotations
@@ -16,6 +17,16 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+
+def _to_device(dataset: "ArrayDataset", idx: np.ndarray, device) -> tuple:
+    """The rows `idx` of every array, on `device` in their storage dtype."""
+    host = [torch.from_numpy(np.ascontiguousarray(a[idx])) for a in dataset.arrays]
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return tuple(host)
+    # the caching host allocator keeps a pinned block until its copy ends
+    return tuple(h.pin_memory().to(dev, non_blocking=True) for h in host)
 
 
 class ArrayDataset:
@@ -48,18 +59,26 @@ def epoch_batches(dataset: ArrayDataset, batch_size: int, shuffle_seed: int | No
     order = (np.random.default_rng(shuffle_seed).permutation(n) if shuffle_seed is not None
              else np.arange(n))
     num_batches = n // batch_size
-    dev = torch.device(device)
 
     def put(i: int) -> tuple:
-        idx = order[i * batch_size:(i + 1) * batch_size]
-        host = [torch.from_numpy(np.ascontiguousarray(a[idx])) for a in dataset.arrays]
-        if dev.type == "cpu":
-            return tuple(host)
-        # the caching host allocator keeps a pinned block until its copy ends
-        return tuple(h.pin_memory().to(dev, non_blocking=True) for h in host)
+        return _to_device(dataset, order[i * batch_size:(i + 1) * batch_size], device)
 
     buf = deque(put(i) for i in range(min(PREFETCH, num_batches)))
     for i in range(num_batches):
         if i + PREFETCH < num_batches:
             buf.append(put(i + PREFETCH))
         yield buf.popleft()
+
+
+def eval_batches(dataset: ArrayDataset, batch_size: int,
+                 device: str | torch.device = "cpu") -> Iterator[tuple[int, tuple]]:
+    """Batches covering the whole dataset in order: yields (n_valid, batch).
+    The trailing partial batch is padded, wrapping around to the start, up
+    to `batch_size`; callers weight by `n_valid` and ignore the pad rows."""
+    n = len(dataset)
+    for start in range(0, n, batch_size):
+        idx = np.arange(start, min(start + batch_size, n))
+        n_valid = len(idx)
+        if n_valid < batch_size:
+            idx = np.concatenate([idx, np.arange(batch_size - n_valid) % n])
+        yield n_valid, _to_device(dataset, idx, device)

@@ -29,7 +29,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..compat.from_jax import adam_state, adam_tree, unet_flax_params, unet_state_dict
+from ..compat.from_jax import adam_moments, adam_tree, unet_flax_params, unet_state_dict
 from ..core import checkpoint as ckpt
 from ..core import resolve_device
 from ..core.config import DiffusionConfig
@@ -261,7 +261,8 @@ class DiffusionTrainer:
             src = unet_state_dict(trees["unet_ema"]) if "unet_ema" in trees else None
             for e, name, p in zip(self.state.ema, self.names, opt.params):
                 e.copy_(src[name] if src is not None else p)
-        _, mu, nu = adam_state(trees["optim"])
+        _, mu, nu = adam_moments(trees["optim"])
+        mu, nu = unet_state_dict(mu), unet_state_dict(nu)
         opt.load(int(trees["step"]["step"]), [mu[n] for n in self.names],
                  [nu[n] for n in self.names])
         self.curr_epoch = int(meta["epoch"]) + 1
@@ -277,8 +278,8 @@ class DiffusionTrainer:
             unet=unet_flax_params(self._named(opt.params)),
             unet_ema=(unet_flax_params(self._named(self.state.ema))
                       if self.state.ema is not None else None),
-            optim=adam_tree(opt.count, self._named(mu), self._named(nu),
-                            clipped=opt.clip_grad is not None),
+            optim=adam_tree(opt.count, unet_flax_params(self._named(mu)),
+                            unet_flax_params(self._named(nu)), clipped=opt.clip_grad is not None),
             step={"step": np.asarray(opt.count, dtype=np.int64)},  # as flax writes it
         )
         if asynchronous:

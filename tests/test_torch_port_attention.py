@@ -61,7 +61,7 @@ def test_wrapper_raises_off_the_cpu_instead_of_falling_back():
 
 
 def test_einsum_path_matches_jax_xla_route():
-    """The plain einsum path (fp32 mode, and the VAE's d=384 site) against
+    """The plain einsum path (fp32 verification mode) against
     the JAX layer's XLA formula, fp32 at 2e-5."""
     q, k, v = _qkv(2, 64, 96, seed=5)
     heads, d = 3, 32
@@ -83,7 +83,7 @@ def test_einsum_path_matches_jax_xla_route():
     (1024, 128, 8, torch.bfloat16, "kernel"),
     (256, 384, 8, torch.bfloat16, "kernel"),
     (16, 512, 8, torch.bfloat16, "kernel"),
-    (1024, 384, 1, torch.bfloat16, "plain"),   # VAE mid-block, d=384
+    (1024, 384, 1, torch.bfloat16, "flash"),   # VAE mid-block, d=384
     (1024, 256, 8, torch.float32, "plain"),    # verification mode
     (24, 128, 8, torch.bfloat16, "plain"),     # N not a multiple of 16
     (64, 40, 2, torch.bfloat16, "plain"),      # d=20

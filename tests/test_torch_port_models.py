@@ -74,7 +74,7 @@ def test_kl_vae_golden():
     model = build_vae(VAEArch(**VAE_TINY), torch.float32, "cpu")
     model.load_state_dict(state)
     with torch.no_grad():
-        z = model.encode(torch.from_numpy(nhwc(g["x"])))
+        z = model.encode(torch.from_numpy(nhwc(g["x"])))[0]
         x_hat = model.decode(z[..., :3].contiguous())
     np.testing.assert_allclose(z.numpy(), nhwc(g["z_raw"]), atol=ATOL)
     np.testing.assert_allclose(x_hat.numpy(), nhwc(g["x_hat"]), atol=ATOL)
@@ -85,7 +85,7 @@ def test_vq_vae_golden():
     model = build_vae(VAEArch(**VAE_TINY, **VQ), torch.float32, "cpu")
     model.load_state_dict(state)
     with torch.no_grad():
-        x_hat = model.decode(model.encode(torch.from_numpy(nhwc(g["x"]))), quantize=True)
+        x_hat = model.decode(model.encode(torch.from_numpy(nhwc(g["x"])))[0], quantize=True)
     np.testing.assert_allclose(x_hat.numpy(), nhwc(g["x_hat"]), atol=ATOL)
 
 
@@ -188,9 +188,12 @@ def test_tiny_vae_matches_flax_fp32(vq):
     model.load_state_dict(vae_state_dict(variables))
     with torch.no_grad():
         dec = model.decode(torch.from_numpy(z), quantize=vq).numpy()
-        enc = model.encode(torch.from_numpy(x)).numpy()
+        enc, prior, perplexity = model.encode(torch.from_numpy(x))
     np.testing.assert_allclose(dec, ref_dec, atol=ATOL)
-    if not vq:  # KL encode is the raw mean || log_var map
-        np.testing.assert_allclose(enc, np.asarray(ref_enc[0]), atol=ATOL)
+    # KL: the raw mean || log_var map; VQ: the nearest codes, beta times the
+    # commitment loss and the batch's code perplexity
+    np.testing.assert_allclose(enc.numpy(), np.asarray(ref_enc[0]), atol=ATOL)
+    np.testing.assert_allclose([float(prior), float(perplexity)],
+                               [float(ref_enc[1]), float(ref_enc[2])], rtol=ATOL)
     back = vae_flax_variables(model.state_dict())
     jax.tree.map(np.testing.assert_array_equal, back, variables)

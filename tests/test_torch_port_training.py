@@ -320,11 +320,12 @@ def test_config_reader_equals_yaml(path):
         if isinstance(v, str) and tcfg._SCI_NOTATION.match(v):
             ref[k] = float(v)
     assert tcfg.parse_config(path) == ref
-    if os.path.basename(path).startswith("diff"):
-        j, t = jcfg.DiffusionConfig.from_yaml(path), tcfg.DiffusionConfig.from_yaml(path)
-        ref = dataclasses.asdict(j)
-        del ref["train"]["compile"]  # XLA's jit switch; the port runs eagerly
-        assert ref == dataclasses.asdict(t)
+    kind = "DiffusionConfig" if os.path.basename(path).startswith("diff") else "VAEConfig"
+    j, t = getattr(jcfg, kind).from_yaml(path), getattr(tcfg, kind).from_yaml(path)
+    ref = dataclasses.asdict(j)
+    del ref["train"]["compile"]  # XLA's jit switch; the port runs eagerly
+    assert ref == dataclasses.asdict(t)
+    assert j.arch.to_dict() == t.arch.to_dict()
 
 
 @pytest.mark.parametrize("text", [
