@@ -8,13 +8,19 @@ Phases, one status line each; any failure exits non-zero:
      triton versions;
   2. build every kernel of the sampling and both training paths from the
      sources in this checkout (nvcc, sm_90a, one process per source, all
-     started together), with the build seconds and nvcc's release;
-  3. the forward kernel against its plain PyTorch version at the shapes the
-     sampling grid gives it (batch 54, bf16), with times of the kernel, the
-     plain version and one PyTorch library call, and the card's bound;
-  3b. the backward kernel against its plain version at the same site
-     shapes at the training batch (48, bf16, random dO), per operand, with
-     the same times (library: SDPA's backward through autograd);
+     started together), with the build seconds, nvcc's release and ptxas'
+     registers per kernel; a kernel that spills registers fails the phase;
+  3. the forward kernel and the row sums it hands to the backward against
+     their plain PyTorch version at the shapes the sampling grid gives it
+     (batch 54, bf16), with times of the kernel, the plain version and one
+     PyTorch library call, the card's bound and the time its
+     special-function units need for the exponentials;
+  3b. the backward kernels against their plain version at the same site
+     shapes at the training batch (48, bf16, random dO), per operand, both
+     called alone (the wrapper launches the forward first) and through
+     `PackedAttention` with the forward's saved output and row sums, which
+     is what training runs, with the same times (library: SDPA's backward
+     through autograd);
   3c. the flash kernel against its plain version at the VAE's attention
      site (one head, N 1024, D 384) at batches 27 (the grid's decode) and
      48 (training), with the same times (library: SDPA, its backend named),
@@ -63,6 +69,7 @@ from importlib import metadata
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
+EXP_PER_CLOCK = 16 * 132  # special-function results a clock: 16 on each of 132 SMs
 B_GRID = 54               # 27 images x 2 (conditional + unconditional rows)
 B_TRAIN = 48              # the shipped config's batch_size
 TRAIN_STEPS = 25          # trainer steps in phase 6: 5 flushes of log_interval 5
@@ -80,6 +87,9 @@ ATOL = RTOL = 2e-2
 # The gradients' typical size is ~0.05 at N=1024, so the elementwise bar
 # above alone would let a systematic error of a few percent through
 BWD_REL_MAX = 2e-2
+# the forward's fp32 row sums vs the plain version's: max |k - p| / p (the
+# same fp32 weights summed in another order)
+ROW_SUM_REL = 1e-3
 # full-width UNet, card vs CPU rows in bf16: relative L2 error.  Both sides
 # round to bf16 at the same points, but sum in different orders through ~100
 # layers (bf16 vs fp32 of a reduced-width UNet on the CPU differ by 3.4e-2);
@@ -108,12 +118,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def ptxas_summary(text: str) -> list[str]:
-    """"kernel<template args>: registers, spill stores/loads" for each entry
-    function in ptxas' verbose output."""
+def ptxas_summary(text: str) -> tuple[list[str], int]:
+    """(["kernel<template args> registers, spill stores/loads", ...] for each
+    entry function in ptxas' verbose output, the spill bytes of all of them
+    together)."""
     import re
 
-    out, name, spill = [], None, ""
+    out, name, spill, spilled = [], None, "", 0
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
@@ -124,10 +135,11 @@ def ptxas_summary(text: str) -> list[str]:
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spill = f"spill stores/loads {m.group(1)}/{m.group(2)} B"
+            spilled += int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out.append(f"{name} {m.group(1)} registers, {spill}")
-    return out
+    return out, spilled
 
 
 def rel_l2(a, b) -> float:
@@ -168,91 +180,155 @@ def device_profile(torch, fn, iters: int = 3):
     return ms, sum(e.count for e in kernels) / iters, wall_ms
 
 
+def device_ms(torch, fn) -> float:
+    """Device time of one call of `fn`: its kernels' durations summed, from
+    a torch.profiler trace of 5 calls.  Unlike the CUDA-event time of a run
+    of calls it leaves out the gaps the host leaves between short kernels."""
+    fn()
+    return sum(device_profile(torch, fn, iters=5)[0].values())
+
+
 def idle_share(busy_ms: float, wall_ms: float) -> str:
     return f"{1 - busy_ms / wall_ms:.3f}" if busy_ms > 0 else "not measured (no device events)"
 
 
-def phase_kernels(torch, F, attn):
-    """Phase 3: packed attention vs its plain version and SDPA per site."""
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi gives it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def exp_ms(exponentials: float, clock_hz: float) -> float:
+    """The least time the card's special-function units need for that many
+    exp2: 16 a clock on each of 132 SMs at the maximum SM clock.  Not part
+    of `bound_ms` (a polynomial on the FMA units could share the load)."""
+    return exponentials / (EXP_PER_CLOCK * clock_hz) * 1e3
+
+
+def phase_kernels(torch, F, attn, clock_hz):
+    """Phase 3: packed attention, and the row sums it hands to the
+    backward, vs its plain version and SDPA per site."""
     sites = []
     for N, C, h in SITES:
         d = C // h
         g = torch.Generator(device="cuda").manual_seed(1000 * N + C)
         q, k, v = (torch.randn(B_GRID, N, C, generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
-        got = attn.packed_attention(q, k, v, h)
-        ref = attn.reference_packed_attention(q, k, v, h)
+        with torch.no_grad():  # as the sampler calls it: the kernel gets no row_sum pointer
+            got = attn.packed_attention(q, k, v, h)
+        _, sums = attn.packed_attention_with_row_sum(q, k, v, h)
+        ref, ref_sums = attn.reference_packed_attention(q, k, v, h, return_row_sum=True)
         torch.cuda.synchronize()
         diff = (got.float() - ref.float()).abs()
         max_abs = float(diff.max())
         ratio = float((diff / (ATOL + RTOL * ref.float().abs())).max())
+        sum_rel = float(((sums - ref_sums).abs() / ref_sums).max())
+        del sums, ref_sums
         heads = [t.view(B_GRID, N, h, d).transpose(1, 2).contiguous() for t in (q, k, v)]
-        ms = cuda_ms(lambda: attn.packed_attention(q, k, v, h), iters=20)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: attn.packed_attention(q, k, v, h), iters=20)
+            dev_ms = device_ms(torch, lambda: attn.packed_attention(q, k, v, h))
         plain_ms = cuda_ms(lambda: attn.reference_packed_attention(q, k, v, h), iters=5)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads), iters=20)
+        lib_dev_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(*heads))
         flops, nbytes = 4 * B_GRID * N * N * C, 4 * B_GRID * N * C * 2
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        site = dict(N=N, C=C, d=d, max_abs_err=max_abs, tol_ratio=ratio, ms=ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, bound_ms=bound_ms,
-                    bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes")
+        site = dict(N=N, C=C, d=d, max_abs_err=max_abs, tol_ratio=ratio, row_sum_rel_err=sum_rel,
+                    ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    library_device_ms=lib_dev_ms, bound_ms=bound_ms,
+                    bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
+                    exp_ms=exp_ms(B_GRID * h * N * N, clock_hz))  # one exp2 per score
         sites.append(site)
         log(f"phase 3 kernel  N={N:5d} C={C} d={d}: max|err|={max_abs:.3e} "
-            f"(tolerance ratio {ratio:.3f}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({site['bound_by']})")
-        if not ratio <= 1.0:
+            f"(tolerance ratio {ratio:.3f}), row sums max rel err {sum_rel:.3e} (tolerance "
+            f"{ROW_SUM_REL}); kernel {ms:.4f} ms ({dev_ms:.4f} ms on the device), plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({lib_dev_ms:.4f} ms on the device), "
+            f"bound {bound_ms:.4f} ms ({site['bound_by']}), "
+            f"exponentials {site['exp_ms']:.4f} ms")
+        if not (ratio <= 1.0 and sum_rel <= ROW_SUM_REL):
             raise AssertionError(f"kernel disagrees with its plain version at N={N} C={C}")
     return sites
 
 
-def phase_bwd_kernels(torch, F, attn):
-    """Phase 3b: the backward kernel vs its plain version and SDPA's
-    backward per site, at the training batch."""
+def phase_bwd_kernels(torch, F, attn, clock_hz):
+    """Phase 3b: the backward kernels vs their plain version and SDPA's
+    backward per site, at the training batch: called alone, and through
+    `PackedAttention` with the forward's saved output and row sums."""
     sites = []
     for N, C, h in SITES:
         d = C // h
         g = torch.Generator(device="cuda").manual_seed(2000 * N + C)
         q, k, v, do = (torch.randn(B_TRAIN, N, C, generator=g, device="cuda").to(torch.bfloat16)
                        for _ in range(4))
-        got = attn.packed_attention_bwd(q, k, v, do, h)
+        alone = attn.packed_attention_bwd(q, k, v, do, h)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = (attn.packed_attention.launches, attn.packed_attention_bwd.launches)
+        attn.packed_attention(*leaves, h).backward(do)
+        launched = (attn.packed_attention.launches - before[0],
+                    attn.packed_attention_bwd.launches - before[1])
+        got = [t.grad for t in leaves]
         ref = attn.reference_packed_attention_bwd(q, k, v, do, h)
         torch.cuda.synchronize()
+        # the same kernels on the same statistics: bit for bit
+        same = all(torch.equal(a, b) for a, b in zip(alone, got))
         errs, ratios, rels = {}, {}, {}
         for name, a, b in zip(("dq", "dk", "dv"), got, ref):
             diff = (a.float() - b.float()).abs()
             errs[name] = float(diff.max())
             ratios[name] = float((diff / (ATOL + RTOL * b.float().abs())).max())
             rels[name] = errs[name] / float(b.float().abs().max())
-        del got, ref
+        del alone, got, ref, leaves
+        out, sums = attn.packed_attention_with_row_sum(q, k, v, h)
         heads = [t.view(B_TRAIN, N, h, d).transpose(1, 2).contiguous().requires_grad_()
                  for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*heads)
+        lib_out = F.scaled_dot_product_attention(*heads)
         do_heads = do.view(B_TRAIN, N, h, d).transpose(1, 2).contiguous()
-        ms = cuda_ms(lambda: attn.packed_attention_bwd(q, k, v, do, h), iters=20)
+        # what `PackedAttention.backward` calls: the kernels on the saved statistics
+        ms = cuda_ms(lambda: attn.packed_attention_bwd(q, k, v, do, h, out, sums), iters=20)
+        by_kernel = device_profile(torch, lambda: attn.packed_attention_bwd(q, k, v, do, h, out, sums),
+                                   iters=5)[0]
+        dev_ms = sum(by_kernel.values())
+        dkdv_dev_ms = sum(t for name, t in by_kernel.items() if "dkdv_kernel" in name)
+        alone_ms = cuda_ms(lambda: attn.packed_attention_bwd(q, k, v, do, h), iters=20)
         plain_ms = cuda_ms(lambda: attn.reference_packed_attention_bwd(q, k, v, do, h), iters=3,
                            warmup=1)
-        lib_ms = cuda_ms(lambda: torch.autograd.grad(out, heads, do_heads, retain_graph=True),
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, heads, do_heads, retain_graph=True),
                          iters=20)
-        del out, heads
+        lib_dev_ms = device_ms(torch, lambda: torch.autograd.grad(lib_out, heads, do_heads,
+                                                                  retain_graph=True))
+        del lib_out, heads, out, sums
         # five products; q, k, v, dO read and dq, dk, dv written once
         flops, nbytes = 10 * B_TRAIN * N * N * C, 7 * B_TRAIN * N * C * 2
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
         site = dict(N=N, C=C, d=d, max_abs_err=max(errs.values()), max_abs_err_by_operand=errs,
-                    tol_ratio_by_operand=ratios, rel_max_by_operand=rels, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=bound_ms,
-                    bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes")
+                    tol_ratio_by_operand=ratios, rel_max_by_operand=rels, ms=ms, device_ms=dev_ms,
+                    dq_device_ms=dev_ms - dkdv_dev_ms, dkdv_device_ms=dkdv_dev_ms,
+                    alone_ms=alone_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    library_device_ms=lib_dev_ms, bound_ms=bound_ms,
+                    bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
+                    # the dq and the dk/dv kernel each take one exp2 per score
+                    exp_ms=exp_ms(2 * B_TRAIN * h * N * N, clock_hz))
         sites.append(site)
         log(f"phase 3b bwd kernel N={N:5d} C={C} d={d}: max|err| "
             + " ".join(f"{n} {errs[n]:.3e}" for n in errs) + "; tolerance ratio "
             + " ".join(f"{n} {ratios[n]:.3f}" for n in ratios) + "; max|err|/max|plain| "
             + " ".join(f"{n} {rels[n]:.3e}" for n in rels) + f" (tolerance {BWD_REL_MAX})"
-            + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({site['bound_by']})")
-        if not (max(ratios.values()) <= 1.0 and max(rels.values()) < BWD_REL_MAX):
+            + f"; alone equals through PackedAttention bit for bit: {same}; kernel {ms:.4f} ms "
+            f"with the forward's statistics ({dev_ms:.4f} ms on the device: dq "
+            f"{dev_ms - dkdv_dev_ms:.4f}, dk/dv {dkdv_dev_ms:.4f}), {alone_ms:.4f} ms "
+            f"alone, plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms ({lib_dev_ms:.4f} ms on the "
+            f"device), bound {bound_ms:.4f} ms ({site['bound_by']}), "
+            f"exponentials {site['exp_ms']:.4f} ms")
+        if launched != (1, 1):
+            raise AssertionError(f"PackedAttention launched {launched} forward and backward "
+                                 f"kernels at N={N} C={C}, expected one each")
+        if not (same and max(ratios.values()) <= 1.0 and max(rels.values()) < BWD_REL_MAX):
             raise AssertionError(f"backward kernel disagrees with its plain version at N={N} C={C}")
     return sites
 
 
-def phase_flash_kernel(torch, F, attn):
+def phase_flash_kernel(torch, F, attn, clock_hz):
     """Phase 3c: the flash kernel against its plain version at the VAE's
     attention site (one head, N = 32*32, D = 384) at the grid's decode batch
     and the training batch, with times, and the gradient through
@@ -302,7 +378,8 @@ def phase_flash_kernel(torch, F, attn):
         row = dict(B=B, H=1, N=N, D=D, max_abs_err=max_abs, tol_ratio=ratio, rel_max=rel,
                    grad_rel_max_by_operand=grad_rel, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    library_backend=backend, bound_ms=bound_ms,
-                   bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes")
+                   bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
+                   exp_ms=exp_ms(B * N * N, clock_hz))  # one exp2 per score
         batches.append(row)
         log(f"phase 3c flash kernel B={B} H=1 N={N} D={D}: max|err|={max_abs:.3e} (tolerance ratio "
             f"{ratio:.3f}, max|err|/max|plain| {rel:.3e}); gradient max|err|/max|plain| "
@@ -706,7 +783,8 @@ def main() -> int:
         triton_version = metadata.version("triton")
     except metadata.PackageNotFoundError:
         triton_version = "absent"
-    log(f"phase 1 card: {name}; {smi}; python {sys.version.split()[0]}, torch {torch.__version__}, "
+    clock_hz = sm_clock_hz()
+    log(f"phase 1 card: {name}; {smi}; max SM clock {clock_hz / 1e6:.0f} MHz; python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, triton {triton_version}, devices {torch.cuda.device_count()}")
 
     # phase 2: build every kernel of the path
@@ -714,15 +792,25 @@ def main() -> int:
                                   check=True, timeout=60).stdout.strip().splitlines()[-1]
     t0 = time.perf_counter()
     build(KERNEL_SOURCES)
-    log(f"phase 2 build: packed_attention.cu, packed_attention_bwd.cu and flash_attention.cu in "
+    log(f"phase 2 build: packed_attention.cu and packed_attention_bwd.cu (both with "
+        f"packed_common.cuh) and flash_attention.cu in "
         f"{time.perf_counter() - t0:.1f} s ({nvcc_version})")
     for source in KERNEL_SOURCES:
-        log(f"phase 2 ptxas {source}.cu: " + "; ".join(ptxas_summary(BUILD_OUTPUT[source])))
+        if source not in BUILD_OUTPUT:
+            log(f"phase 2 ptxas {source}.cu: registers and spills not measured in this run (the "
+                f"library of this source and these flags was there already; remove "
+                f"build/torch_kernels/ to build it again)")
+            continue
+        entries, spilled = ptxas_summary(BUILD_OUTPUT[source])
+        log(f"phase 2 ptxas {source}.cu: " + "; ".join(entries))
+        if not entries or spilled:
+            raise AssertionError(f"{source}.cu: " + (f"{spilled} bytes of register spills"
+                                                     if entries else "no ptxas report to read"))
 
     # phase 3: kernels against their plain versions
-    sites = phase_kernels(torch, F, attn)
-    bwd_sites = phase_bwd_kernels(torch, F, attn)
-    flash_batches = phase_flash_kernel(torch, F, attn)
+    sites = phase_kernels(torch, F, attn, clock_hz)
+    bwd_sites = phase_bwd_kernels(torch, F, attn, clock_hz)
+    flash_batches = phase_flash_kernel(torch, F, attn, clock_hz)
 
     # phase 4: full-width UNet forward on the card, two rows against the CPU
     gen = torch.Generator().manual_seed(0)
@@ -842,10 +930,13 @@ def main() -> int:
     # phase 7: stage-1 training on the card
     vae_train = phase_vae_train(torch, np, attn)
 
-    per_forward = {k: 2 * sum(s[k] for s in sites) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    per_forward = {k: 2 * sum(s[k] for s in sites)
+                   for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                             "bound_ms", "exp_ms")}
     bound_ops = 2 * sum(s["bound_ms"] for s in sites if s["bound_by"] == "operations")
     per_backward = {k: 2 * sum(s[k] for s in bwd_sites)
-                    for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                    for k in ("ms", "device_ms", "dq_device_ms", "dkdv_device_ms", "alone_ms",
+                              "plain_ms", "library_ms", "library_device_ms", "bound_ms", "exp_ms")}
     bwd_bound_ops = 2 * sum(s["bound_ms"] for s in bwd_sites if s["bound_by"] == "operations")
     record = {"kernels": [{
         "name": "packed_attention",
@@ -867,7 +958,9 @@ def main() -> int:
         "max_abs_err": max(s["max_abs_err"] for s in bwd_sites),
         **per_backward,
         "bound_by": "operations" if bwd_bound_ops > per_backward["bound_ms"] / 2 else "bytes",
-        "per": "one UNet backward at batch 48: 14 sites, two of each shape in sites",
+        "per": "one UNet backward at batch 48: 14 sites, two of each shape in sites; ms with "
+               "the forward's saved output and row sums, as PackedAttention calls it; alone_ms "
+               "when the wrapper launches the forward first",
         "sites": bwd_sites,
     }, {
         "name": "flash_attention",
@@ -876,7 +969,8 @@ def main() -> int:
         "replaces": "image_diffusion_tpu/ops/pallas/attention.py:40",
         "launches": vae_train["launches"],
         "max_abs_err": max(b["max_abs_err"] for b in flash_batches),
-        **{k: flash_batches[-1][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        **{k: flash_batches[-1][k]
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "exp_ms")},
         "per": "one call at the VAE's attention site, B=48 (the training batch), H=1, N=1024, D=384",
         "batches": flash_batches,
     }], "unet_forward_ms": fwd_ms, "unet_forward_device_busy_ms": busy_ms,

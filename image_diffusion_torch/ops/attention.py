@@ -40,20 +40,24 @@ def merge_heads(t: torch.Tensor) -> torch.Tensor:
 
 
 def reference_packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                               num_heads: int) -> torch.Tensor:
+                               num_heads: int, return_row_sum: bool = False):
     """Plain PyTorch statement of the kernel's math (bf16 operands, fp32
     scores and sums, clamped-exp2 softmax), output in q's dtype.  Products
     of bf16 values are exact in fp32, so fp32 matmuls of the bf16-rounded
-    operands give the bf16-operand / fp32-accumulation products."""
+    operands give the bf16-operand / fp32-accumulation products.  With
+    `return_row_sum` also each row's fp32 sum of weights, (B, heads, N):
+    what the forward kernel hands to the backward."""
     scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
     bf = torch.bfloat16
     qs = (q.float() * (scale * LOG2E)).to(bf)
     s = torch.matmul(split_heads(qs, num_heads).float(),
                      split_heads(k.to(bf), num_heads).float().transpose(-1, -2))
     w = torch.exp2(torch.clamp(s, -100.0, 100.0))
-    p = (w / w.sum(dim=-1, keepdim=True)).to(bf)
+    row_sum = w.sum(dim=-1, keepdim=True)
+    p = (w / row_sum).to(bf)
     out = torch.matmul(p.float(), split_heads(v.to(bf), num_heads).float())
-    return merge_heads(out).to(q.dtype)
+    out = merge_heads(out).to(q.dtype)
+    return (out, row_sum.squeeze(-1)) if return_row_sum else out
 
 
 def reference_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -104,16 +108,42 @@ def reference_packed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     return merge_heads(dq).to(q.dtype), merge_heads(dk).to(k.dtype), merge_heads(dv).to(v.dtype)
 
 
+def reference_packed_attention_bwd_from_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                              out: torch.Tensor, do: torch.Tensor,
+                                              row_sum: torch.Tensor, num_heads: int):
+    """Plain PyTorch statement of the backward kernels' arithmetic ->
+    (dq, dk, dv): as `reference_packed_attention_bwd`, but with what the
+    forward saved.  P = w / row_sum from the forward's fp32 row sums (B,
+    heads, N) instead of a sum of its own, and delta = rowsum(dO_h * O_h)
+    from the forward's output instead of rowsum(dP * P): the two deltas are
+    equal up to P's rounding to bf16 inside O's product and O's own
+    rounding to its dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
+    bf = torch.bfloat16
+    qs = (q.float() * (scale * LOG2E)).to(bf)
+    qh, kh, vh, doh = (split_heads(t.to(bf), num_heads).float() for t in (q, k, v, do))
+    oh = split_heads(out, num_heads).float()  # as saved: bf16 on the card
+    s = torch.matmul(split_heads(qs, num_heads).float(), kh.transpose(-1, -2))
+    p = torch.exp2(torch.clamp(s, -100.0, 100.0)) / row_sum.float().unsqueeze(-1)
+    dv = torch.matmul(p.to(bf).float().transpose(-1, -2), doh)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    delta = (doh * oh).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(bf).float()
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return merge_heads(dq).to(q.dtype), merge_heads(dk).to(k.dtype), merge_heads(dv).to(v.dtype)
+
+
 def _bind_forward(lib: ctypes.CDLL):
     fn = lib.packed_attention_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _bind_backward(lib: ctypes.CDLL):
     fn = lib.packed_attention_backward
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -149,49 +179,94 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _packed_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    num_heads: int) -> torch.Tensor:
-    """The forward: plain version on CPU tensors, else the kernel of
-    `csrc/packed_attention.cu` (built at first use) or an error.  Each
-    launch adds one to `packed_attention.launches`."""
-    if _on_cpu(q, k, v):
-        return reference_packed_attention(q, k, v, num_heads)
-    _check_kernel_inputs("packed_attention", {"q": q, "k": k, "v": v}, num_heads)
+def _check_row_sum(op: str, row_sum: torch.Tensor, q: torch.Tensor, num_heads: int) -> None:
+    B, N, _ = q.shape
+    if (row_sum.device != q.device or row_sum.dtype != torch.float32
+            or row_sum.shape != (B, num_heads, N) or not row_sum.is_contiguous()
+            or row_sum.data_ptr() % 16):
+        raise ValueError(f"{op}: row_sum must be a contiguous, 16-byte aligned float32 "
+                         f"(B, heads, N) = {(B, num_heads, N)} tensor on q's device, got "
+                         f"{row_sum.dtype} {tuple(row_sum.shape)} on {row_sum.device}")
+
+
+def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                    with_row_sum: bool):
+    """Launch the kernel of `csrc/packed_attention.cu` (built at first use)
+    on checked CUDA tensors -> (out, row_sum or None).  Without
+    `with_row_sum` the kernel gets a null pointer and writes no sums.  Adds
+    one to `packed_attention.launches`."""
     B, N, C = q.shape
     fn = _bind_forward(load_library("packed_attention"))
     out = torch.empty_like(q)
+    row_sum = (torch.empty(B, num_heads, N, dtype=torch.float32, device=q.device)
+               if with_row_sum else None)
     qscale = (1.0 / math.sqrt(C // num_heads)) * LOG2E
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 row_sum.data_ptr() if with_row_sum else None,
                  B, N, C, num_heads, qscale, stream)
     if err != 0:
         raise RuntimeError(f"packed_attention kernel launch failed: cudaError {err}")
     packed_attention.launches += 1
-    return out
+    return out, row_sum
+
+
+def _packed_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                    return_row_sum: bool = False):
+    """The forward -> out, or (out, row_sum) with `return_row_sum`: plain
+    version on CPU tensors, else the kernel or an error."""
+    if _on_cpu(q, k, v):
+        return reference_packed_attention(q, k, v, num_heads, return_row_sum)
+    _check_kernel_inputs("packed_attention", {"q": q, "k": k, "v": v}, num_heads)
+    out, row_sum = _launch_forward(q, k, v, num_heads, return_row_sum)
+    return (out, row_sum) if return_row_sum else out
+
+
+def packed_attention_with_row_sum(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  num_heads: int):
+    """The forward alone -> (out (B, N, C), row_sum (B, heads, N) float32):
+    what `PackedAttention` saves for `packed_attention_bwd`.  No gradient
+    flows through it."""
+    return _packed_forward(q, k, v, num_heads, return_row_sum=True)
 
 
 def packed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         do: torch.Tensor, num_heads: int):
+                         do: torch.Tensor, num_heads: int,
+                         out: torch.Tensor | None = None, row_sum: torch.Tensor | None = None):
     """Backward of packed self-attention -> (dq, dk, dv), each (B, N, C).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernels of
-    `csrc/packed_attention_bwd.cu` (built at first use) or raise.  Each
-    launch adds one to `packed_attention_bwd.launches`."""
+    `out` and `row_sum` are the forward's output and fp32 row sums (B,
+    heads, N) for the same q, k, v, as `PackedAttention` saves them; given
+    neither, they are computed first (on the card by a launch of the
+    forward kernel, which adds one to `packed_attention.launches`).  CPU
+    tensors take the plain versions; CUDA tensors launch the kernels of
+    `csrc/packed_attention_bwd.cu` (built at first use) or raise.  Each call
+    that launches them adds one to `packed_attention_bwd.launches`."""
+    if (out is None) != (row_sum is None):
+        raise ValueError("packed_attention_bwd: pass both out and row_sum, or neither")
     if _on_cpu(q, k, v, do):
-        return reference_packed_attention_bwd(q, k, v, do, num_heads)
-    _check_kernel_inputs("packed_attention_bwd", {"q": q, "k": k, "v": v, "do": do}, num_heads)
+        if out is None:
+            return reference_packed_attention_bwd(q, k, v, do, num_heads)
+        return reference_packed_attention_bwd_from_stats(q, k, v, out, do, row_sum, num_heads)
+    tensors = {"q": q, "k": k, "v": v, "do": do}
+    if out is not None:
+        tensors["out"] = out
+    _check_kernel_inputs("packed_attention_bwd", tensors, num_heads)
+    if out is None:
+        out, row_sum = _launch_forward(q, k, v, num_heads, with_row_sum=True)
+    _check_row_sum("packed_attention_bwd", row_sum, q, num_heads)
     B, N, C = q.shape
     fn = _bind_backward(load_library("packed_attention_bwd"))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # per-row 1/sum(w) and delta, written by the dq kernel, read by dk/dv's
-    stats = torch.empty(2, B, num_heads, N, dtype=torch.float32, device=q.device)
+    # per-row delta, written by the dq kernel, read by dk/dv's
+    delta = torch.empty(B, num_heads, N, dtype=torch.float32, device=q.device)
     scale = 1.0 / math.sqrt(C // num_heads)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-                 B, N, C, num_heads, scale * LOG2E, scale, stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+                 row_sum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 delta.data_ptr(), B, N, C, num_heads, scale * LOG2E, scale, stream)
     if err != 0:
         raise RuntimeError(f"packed_attention_bwd kernel launch failed: cudaError {err}")
     packed_attention_bwd.launches += 1
@@ -203,20 +278,26 @@ packed_attention_bwd.launches = 0
 
 class PackedAttention(torch.autograd.Function):
     """Packed self-attention with the kernel pair: the forward kernel (or
-    its plain version on the CPU) and, as its gradient, the backward kernel
-    (or its plain version).  q, k and v are saved for the backward, which
-    recomputes P from them."""
+    its plain version on the CPU) and, as its gradient, the backward kernels
+    (or their plain version).  On the card q, k, v, the output and the
+    forward's row sums are saved, and the backward rebuilds P from them in
+    one pass; on the CPU q, k and v are saved and the plain backward
+    recomputes the rest."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads: int):
         ctx.num_heads = num_heads
-        ctx.save_for_backward(q, k, v)
-        return _packed_forward(q, k, v, num_heads)
+        if _on_cpu(q, k, v):
+            ctx.save_for_backward(q, k, v)
+            return _packed_forward(q, k, v, num_heads)
+        out, row_sum = _packed_forward(q, k, v, num_heads, return_row_sum=True)
+        ctx.save_for_backward(q, k, v, out, row_sum)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = packed_attention_bwd(q, k, v, do.contiguous(), ctx.num_heads)
+        q, k, v, *stats = ctx.saved_tensors  # stats: (out, row_sum) on the card, else ()
+        dq, dk, dv = packed_attention_bwd(q, k, v, do.contiguous(), ctx.num_heads, *stats)
         return dq, dk, dv, None
 
 
@@ -227,8 +308,9 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     With grad enabled it runs as `PackedAttention`, so its gradient comes
     from the backward kernel; under `no_grad`/`inference_mode` the forward
     runs alone.  CPU tensors take the plain versions; CUDA tensors launch
-    the kernels or raise.  Each forward launch adds one to
-    `packed_attention.launches`."""
+    the kernels or raise.  Each launch of the forward kernel, from here or
+    from `packed_attention_bwd` called without the forward's statistics,
+    adds one to `packed_attention.launches`."""
     if torch.is_grad_enabled():
         return PackedAttention.apply(q, k, v, num_heads)
     return _packed_forward(q, k, v, num_heads)

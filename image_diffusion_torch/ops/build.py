@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface, loaded with `ctypes`.  Libraries go to
 `build/torch_kernels/` at the repository root, named with a hash of the
-source and flags, so an edited source rebuilds and a stale library is
-never loaded.  Building happens at first use, never at import.
+source, the headers beside it (`csrc/*.cuh`) and the flags, so an edited
+source or header rebuilds and a stale library is never loaded.  Building happens at first use, never at import.
 """
 
 from __future__ import annotations
@@ -41,8 +41,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # a source may include any of them
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest = digest.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -15,13 +15,17 @@ import torch
 from image_diffusion_torch.ops.attention import (
     packed_attention,
     packed_attention_bwd,
+    packed_attention_with_row_sum,
     reference_packed_attention,
     reference_packed_attention_bwd,
 )
 
-# the UNet sites, and ragged Q tiles (N=48 < 64, N=80 not a multiple of 64)
-SITES = [(1024, 256, 8), (1024, 128, 8), (256, 384, 8), (256, 256, 8),
-         (64, 512, 8), (64, 384, 8), (16, 512, 8), (48, 128, 4), (80, 64, 4)]
+# the UNet sites; ragged Q tiles (N=48 < 64, N=80 not a multiple of 64) and
+# N=144 and N=192 above 128 but no multiple of it, which stay on the
+# mma.sync kernels; d=64 on the wgmma kernels
+UNET_SITES = [(1024, 256, 8), (1024, 128, 8), (256, 384, 8), (256, 256, 8),
+              (64, 512, 8), (64, 384, 8), (16, 512, 8)]
+SITES = UNET_SITES + [(48, 128, 4), (80, 64, 4), (144, 64, 2), (192, 96, 2), (128, 128, 2)]
 
 
 @pytest.fixture
@@ -47,6 +51,43 @@ def test_cuda_kernel_matches_plain_version(card, N, C, heads):
         packed_attention(q.float(), k.float(), v.float(), heads)
     with pytest.raises(ValueError):
         packed_attention(q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1), heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C,heads", UNET_SITES)
+def test_cuda_kernel_row_sums_match_plain_version(card, N, C, heads):
+    """The fp32 row sums the forward hands to the backward: the same fp32
+    weights summed in another order, 1e-3 relative; and the output beside
+    them is the one the kernel gives without them."""
+    g = torch.Generator(device="cuda").manual_seed(N + C)
+    q, k, v = (torch.randn(4, N, C, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    before = packed_attention.launches
+    out, row_sum = packed_attention_with_row_sum(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert packed_attention.launches == before + 1
+    assert row_sum.dtype == torch.float32 and row_sum.shape == (4, heads, N)
+    _, ref = reference_packed_attention(q, k, v, heads, return_row_sum=True)
+    torch.testing.assert_close(row_sum, ref, atol=0, rtol=1e-3)
+    with torch.no_grad():
+        assert torch.equal(out, packed_attention(q, k, v, heads))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_without_grad_writes_no_row_sums(card):
+    """Under no_grad the kernel gets a null row_sum pointer: same output,
+    and nothing allocated beside it (the sampler pays nothing)."""
+    q, k, v = (torch.randn(2, 256, 128, device="cuda").to(torch.bfloat16) for _ in range(3))
+    with_sums, _ = packed_attention_with_row_sum(q, k, v, 4)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        packed_attention(q, k, v, 4)  # the library is loaded, the allocator warm
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        out = packed_attention(q, k, v, 4)
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() - allocated == out.numel() * out.element_size()
+    assert out.grad_fn is None and torch.equal(out, with_sums)
 
 
 @pytest.mark.cuda
@@ -92,6 +133,31 @@ def test_cuda_bwd_kernel_matches_plain_version(card, N, C, heads):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N,C,heads", SITES)
+def test_cuda_bwd_through_the_function_equals_the_backward_called_alone(card, N, C, heads):
+    """`PackedAttention` hands the forward's output and row sums to the
+    backward; called alone the wrapper launches the forward first.  The
+    same kernels on the same statistics: equal bit for bit, and every
+    launch of the forward kernel is counted, the wrapper's own too."""
+    g = torch.Generator(device="cuda").manual_seed(11 * N + C)
+    q, k, v, do = (torch.randn(3, N, C, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    fwd, bwd = packed_attention.launches, packed_attention_bwd.launches
+    alone = packed_attention_bwd(q, k, v, do, heads)
+    assert (packed_attention.launches - fwd, packed_attention_bwd.launches - bwd) == (1, 1)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    packed_attention(*leaves, heads).backward(do)
+    torch.cuda.synchronize()
+    assert (packed_attention.launches - fwd, packed_attention_bwd.launches - bwd) == (2, 2)
+    for name, a, leaf in zip(("dq", "dk", "dv"), alone, leaves):
+        assert torch.equal(a, leaf.grad), name
+    out, row_sum = packed_attention_with_row_sum(q, k, v, heads)
+    for name, a, b in zip(("dq", "dk", "dv"), alone,
+                          packed_attention_bwd(q, k, v, do, heads, out, row_sum)):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
 def test_cuda_bwd_kernel_refuses_what_it_does_not_take(card):
     q, k, v, do = (torch.randn(2, 64, 128, device="cuda").to(torch.bfloat16) for _ in range(4))
     with pytest.raises(ValueError, match="do is torch.float32"):
@@ -102,6 +168,15 @@ def test_cuda_bwd_kernel_refuses_what_it_does_not_take(card):
         packed_attention_bwd(q, k, v, do, 3)
     with pytest.raises(ValueError, match="multiple of 16"):
         packed_attention_bwd(*(t[:, :40] .contiguous() for t in (q, k, v, do)), 4)
+    out, row_sum = packed_attention_with_row_sum(q, k, v, 4)
+    with pytest.raises(ValueError, match="both out and row_sum"):
+        packed_attention_bwd(q, k, v, do, 4, out=out)
+    with pytest.raises(ValueError, match="out is torch.float32"):
+        packed_attention_bwd(q, k, v, do, 4, out.float(), row_sum)
+    with pytest.raises(ValueError, match="row_sum must be"):
+        packed_attention_bwd(q, k, v, do, 4, out, row_sum.double())
+    with pytest.raises(ValueError, match="row_sum must be"):
+        packed_attention_bwd(q, k, v, do, 4, out, row_sum[:, :2].contiguous())
 
 
 @pytest.mark.cuda
