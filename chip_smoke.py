@@ -24,8 +24,9 @@ Phases, one status line each; any failure exits non-zero:
   3c. the flash kernel against its plain version at the VAE's attention
      site (one head, N 1024, D 384) at batches 27 (the grid's decode) and
      48 (training), with the same times (library: SDPA, its backend named),
-     and the gradient through `FlashAttention` against autograd of the
-     plain version;
+     the gradient through `FlashAttention` against autograd of the plain
+     version, and the device time of that gradient (the einsum path's
+     autograd, which has no kernel);
   4. the full-width UNet forward at batch 54 in bf16: kernel launches per
      forward, its device time by kernel (torch.profiler), and two rows
      against the same rows run on the CPU;
@@ -354,9 +355,11 @@ def phase_flash_kernel(torch, F, attn, clock_hz):
             rel = max_abs / float(ref.float().abs().max())
             del got, ref, diff
             ms = cuda_ms(lambda: attn.flash_attention(q, k, v, scale), iters=20)
+            dev_ms = device_ms(torch, lambda: attn.flash_attention(q, k, v, scale))
             plain_ms = cuda_ms(lambda: attn.reference_flash_attention(q, k, v, scale), iters=5)
             backend = SDPBackend(torch._fused_sdp_choice(q, k, v, scale=scale)).name
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters=20)
+            lib_dev_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
 
         # the gradient: FlashAttention (kernel forward) vs the plain version's autograd
         w = torch.randn(B, 1, N, D, generator=g, device="cuda").to(torch.bfloat16)
@@ -371,21 +374,30 @@ def phase_flash_kernel(torch, F, attn, clock_hz):
         grad_rel = {}
         for name, a, b in zip(("dq", "dk", "dv"), *grads):
             grad_rel[name] = float((a.float() - b.float()).abs().max() / b.float().abs().max())
-        del grads, w
+        del grads
+        # what a train step pays for the gradient: FlashAttention's backward,
+        # autograd of the einsum path (no kernel of the port)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = attn.flash_attention(*leaves, scale)
+        bwd_dev_ms = device_ms(torch, lambda: torch.autograd.grad(out, leaves, w, retain_graph=True))
+        del leaves, out, w
 
         flops, nbytes = 4 * B * N * N * D, 4 * B * N * D * 2
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
         row = dict(B=B, H=1, N=N, D=D, max_abs_err=max_abs, tol_ratio=ratio, rel_max=rel,
-                   grad_rel_max_by_operand=grad_rel, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   library_backend=backend, bound_ms=bound_ms,
+                   grad_rel_max_by_operand=grad_rel, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library_device_ms=lib_dev_ms, library_backend=backend,
+                   einsum_backward_device_ms=bwd_dev_ms, bound_ms=bound_ms,
                    bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
                    exp_ms=exp_ms(B * N * N, clock_hz))  # one exp2 per score
         batches.append(row)
         log(f"phase 3c flash kernel B={B} H=1 N={N} D={D}: max|err|={max_abs:.3e} (tolerance ratio "
             f"{ratio:.3f}, max|err|/max|plain| {rel:.3e}); gradient max|err|/max|plain| "
             + " ".join(f"{n} {grad_rel[n]:.3e}" for n in grad_rel)
-            + f" (tolerance {BWD_REL_MAX}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-            f"({backend}) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({row['bound_by']})")
+            + f" (tolerance {BWD_REL_MAX}); kernel {ms:.4f} ms ({dev_ms:.4f} ms on the device), "
+            f"plain {plain_ms:.4f} ms, sdpa ({backend}) {lib_ms:.4f} ms ({lib_dev_ms:.4f} ms on the "
+            f"device), bound {bound_ms:.4f} ms ({row['bound_by']}), exponentials "
+            f"{row['exp_ms']:.4f} ms; the gradient's einsum backward {bwd_dev_ms:.4f} ms on the device")
         if not (launched == 1 and ratio <= 1.0 and rel < BWD_REL_MAX
                 and max(grad_rel.values()) < BWD_REL_MAX):
             raise AssertionError(f"flash kernel disagrees with its plain version at B={B}")
@@ -792,8 +804,8 @@ def main() -> int:
                                   check=True, timeout=60).stdout.strip().splitlines()[-1]
     t0 = time.perf_counter()
     build(KERNEL_SOURCES)
-    log(f"phase 2 build: packed_attention.cu and packed_attention_bwd.cu (both with "
-        f"packed_common.cuh) and flash_attention.cu in "
+    log(f"phase 2 build: packed_attention.cu, packed_attention_bwd.cu and flash_attention.cu "
+        f"(all with packed_common.cuh) in "
         f"{time.perf_counter() - t0:.1f} s ({nvcc_version})")
     for source in KERNEL_SOURCES:
         if source not in BUILD_OUTPUT:
@@ -970,8 +982,10 @@ def main() -> int:
         "launches": vae_train["launches"],
         "max_abs_err": max(b["max_abs_err"] for b in flash_batches),
         **{k: flash_batches[-1][k]
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "exp_ms")},
-        "per": "one call at the VAE's attention site, B=48 (the training batch), H=1, N=1024, D=384",
+           for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+                     "bound_by", "exp_ms", "einsum_backward_device_ms")},
+        "per": "one call at the VAE's attention site, B=48 (the training batch), H=1, N=1024, D=384; "
+               "einsum_backward_device_ms: one FlashAttention backward (autograd of the einsum path)",
         "batches": flash_batches,
     }], "unet_forward_ms": fwd_ms, "unet_forward_device_busy_ms": busy_ms,
         "ddpm_grid_s": ddpm_s, "dpm20_grid_s": dpm_s, "dpm20_grid_device_busy_ms": dpm_busy,

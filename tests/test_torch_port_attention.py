@@ -147,7 +147,7 @@ def test_packed_kernels_share_one_header():
     from image_diffusion_torch.ops import build
 
     assert (build.CSRC / "packed_common.cuh").exists()
-    for name in ("packed_attention", "packed_attention_bwd"):
+    for name in ("packed_attention", "packed_attention_bwd", "flash_attention"):
         assert '#include "packed_common.cuh"' in (build.CSRC / f"{name}.cu").read_text()
 
 

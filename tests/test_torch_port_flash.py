@@ -88,6 +88,61 @@ def test_flash_attention_backward_is_the_einsum_paths_autograd():
         torch.testing.assert_close(a, t.grad, atol=0, rtol=0)
 
 
+def _emulate_kernel_schedule(q, k, v, scale, keys=64):
+    """The Hopper kernel's arithmetic in plain torch: per tile of `keys`
+    keys, fp32 scores scaled by an fp32 scale * log2(e); the tile's own row
+    max ml, weights exp2(s - ml) and their row sum; then the running max
+    m_new = max(m_old, ml), the weights moved to it by exp2(ml - m_new) and
+    rounded to bf16 for the P.V product (fp32 sums), and the rescale
+    factor exp2(m_old - m_new) applied to the fp32 row sum and accumulator;
+    one division by the row sum at the end, output bf16."""
+    bf = torch.bfloat16
+    scale_log2 = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
+    qf, kf, vf = (t.to(bf).float() for t in (q, k, v))
+    *lead, N, D = q.shape
+    m = torch.full((*lead, N, 1), -math.inf)
+    l = torch.zeros(*lead, N, 1)
+    acc = torch.zeros(*lead, N, D)
+    for j in range(0, N, keys):
+        s = torch.matmul(qf, kf[..., j:j + keys, :].transpose(-1, -2)) * scale_log2
+        ml = s.amax(dim=-1, keepdim=True)
+        w = torch.exp2(s - ml)
+        m_new = torch.maximum(m, ml)
+        f, alpha = torch.exp2(ml - m_new), torch.exp2(m - m_new)
+        l = l * alpha + w.sum(dim=-1, keepdim=True) * f
+        acc = acc * alpha + torch.matmul((w * f).to(bf).float(), vf[..., j:j + keys, :])
+        m = m_new
+    return (acc / l).to(bf)
+
+
+@pytest.mark.parametrize("B,H,N,D", [(2, 1, 1024, 384), (3, 2, 256, 128)])
+def test_kernel_tile_schedule_meets_the_card_bars(B, H, N, D):
+    """The kernel's schedule (64-key tiles, bf16 weights rounded at the
+    running max) against the plain version, within the bars the card holds
+    the kernel to: |err| <= 2e-2 + 2e-2 |plain| elementwise and
+    max|err| / max|plain| < 2e-2.
+
+    It is the same function up to roundings: each weight's bf16 rounding
+    (half an ulp, at most 2^-8 of it) falls at another scale, and each
+    output's too, so |got - plain| <= 2^-7 (softmax . |v| + |plain|)
+    elementwise, with 64-key tiles and with one tile of all keys (measured
+    at most 0.27 of that).  A schedule without the rescale, without moving
+    the weights to the running max, or with exp for exp2, exceeds it 20x or
+    more."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(B, H, N, D, seed=B * N + D))
+    scale = 1.0 / math.sqrt(D)
+    got = _emulate_kernel_schedule(q, k, v, scale).float()
+    ref = reference_flash_attention(q, k, v, scale).float()
+    diff = (got - ref).abs()
+    assert float((diff / (2e-2 + 2e-2 * ref.abs())).max()) <= 1.0
+    assert float(diff.max() / ref.abs().max()) < 2e-2
+    p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
+    rounding = 2.0 ** -7 * (torch.matmul(p, v.float().abs()) + ref.abs())
+    one_tile = _emulate_kernel_schedule(q, k, v, scale, keys=N).float()
+    for emulated in (got, one_tile):
+        assert bool(((emulated - ref).abs() <= rounding).all())
+
+
 def test_site_route():
     # the VAE's mid-block sites of the shipped config: N = 32*32, C = 384, one head
     assert ops.site_route(1024, 384, 1, torch.bfloat16) == "flash"
