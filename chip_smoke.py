@@ -5,7 +5,7 @@
 
 Phases, one status line each; any failure exits non-zero:
   1. the card: name and power limit (nvidia-smi); python, torch, CUDA and
-     triton versions;
+     triton versions; whether matplotlib, PIL and tqdm import;
   2. build every kernel of the sampling and both training paths from the
      sources in this checkout (nvcc, sm_90a, one process per source, all
      started together), with the build seconds, nvcc's release and ptxas'
@@ -22,8 +22,8 @@ Phases, one status line each; any failure exits non-zero:
      is what training runs, with the same times (library: SDPA's backward
      through autograd);
   3c. the flash kernel against its plain version at the VAE's attention
-     site (one head, N 1024, D 384) at batches 27 (the grid's decode) and
-     48 (training), with the same times (library: SDPA, its backend named),
+     site (one head, N 1024, D 384) at batches 27 (the grid's decode), 48
+     (training) and 64 (prepare_dataset's batch), with the same times (library: SDPA, its backend named),
      the gradient through `FlashAttention` against autograd of the plain
      version, and the device time of that gradient (the einsum path's
      autograd, which has no kernel);
@@ -52,7 +52,16 @@ Phases, one status line each; any failure exits non-zero:
      .train_vae` on synthetic images with a dev set whose last batch is
      padded, with losses and imgs/s at each flush, ms/step, and flash
      launches per step; a resume from its checkpoint; a torch.profiler
-     trace of 3 train steps.
+     trace of 3 train steps;
+  8. the two stages joined through the CLIs' `main`s: `prepare_dataset
+     diffusion --labels-mode random` on phase 7's images and checkpoint
+     (batches of 64: images/s, one flash launch a batch, rows against the
+     CPU at fp32), `train_diffusion` (the shipped config, EMA on) on
+     those latents and labels, `make_bundle --ema` (the bundle's weights
+     against the checkpoints' fp32 trees), and `sample_grid`'s defaults
+     (ddpm-1000, 27 images) and `--sampler dpm`: img/s as the CLI logs
+     it, launches, and the images against `pipe.sample` with the same
+     arguments; the figure when matplotlib is installed.
 Then a JSON line of kernel records, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
@@ -73,6 +82,7 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
 EXP_PER_CLOCK = 16 * 132  # special-function results a clock: 16 on each of 132 SMs
 B_GRID = 54               # 27 images x 2 (conditional + unconditional rows)
 B_TRAIN = 48              # the shipped config's batch_size
+B_ENCODE = 64             # prepare_dataset's default --batch-size
 TRAIN_STEPS = 25          # trainer steps in phase 6: 5 flushes of log_interval 5
 CONFIG = "configs/diff-kl-lin-32x32.yaml"
 VAE_CONFIG = "configs/vae-kl-32x32.yaml"
@@ -111,6 +121,10 @@ SITE_GRAD_REL_L2 = 2.5e-1
 # fake and real terms apart.  At init those terms nearly cancel (their sum's
 # norm is ~15% of theirs), so the sum's relative error is several times its
 # terms' bf16 rounding; it is printed, not held
+# phase 8: a few rows of prepare_dataset's latents (bf16 on the card, stored
+# as fp16) against the same rows encoded on the CPU at fp32: relative L2,
+# of the same kind as UNET_REL_L2 through the encoder's ~40 layers
+ENCODE_REL_L2 = 5e-2
 # csrc/<name>.cu of every kernel the paths run
 KERNEL_SOURCES = ["packed_attention", "packed_attention_bwd", "flash_attention"]
 
@@ -331,15 +345,16 @@ def phase_bwd_kernels(torch, F, attn, clock_hz):
 
 def phase_flash_kernel(torch, F, attn, clock_hz):
     """Phase 3c: the flash kernel against its plain version at the VAE's
-    attention site (one head, N = 32*32, D = 384) at the grid's decode batch
-    and the training batch, with times, and the gradient through
+    attention site (one head, N = 32*32, D = 384) at the grid's decode batch,
+    the training batch and prepare_dataset's batch, with times, and the
+    gradient through
     `FlashAttention` against autograd of the plain version."""
     from torch.nn.attention import SDPBackend
 
     N, D = 1024, 384
     scale = 1.0 / D ** 0.5
     batches = []
-    for B in (B_GRID // 2, B_TRAIN):
+    for B in (B_GRID // 2, B_TRAIN, B_ENCODE):
         g = torch.Generator(device="cuda").manual_seed(3000 + B)
         q, k, v = (torch.randn(B, 1, N, D, generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
@@ -604,8 +619,9 @@ def _stage1_grads(torch, cfg, dev, states, lpips, x_u8, draws):
     return {n: g.float().cpu() for n, g in grads.items()}, launches
 
 
-def phase_vae_train(torch, np, attn):
-    """Phase 7: stage-1 VAE-GAN training on the card."""
+def phase_vae_train(torch, np, attn, tmp):
+    """Phase 7: stage-1 VAE-GAN training on the card, its files in `tmp`
+    (phase 8 reads its images and checkpoint)."""
     import csv
 
     from image_diffusion_torch.core.config import VAEConfig
@@ -615,144 +631,143 @@ def phase_vae_train(torch, np, attn):
     from image_diffusion_torch.training.vae_trainer import draw
 
     cfg = VAEConfig.from_yaml(VAE_CONFIG)
-    with tempfile.TemporaryDirectory() as tmp:
-        lpips_path = os.path.join(tmp, "lpips.pth")
-        _random_lpips_file(torch, lpips_path)
-        lpips = LPIPS.from_torch_file(lpips_path)
+    lpips_path = os.path.join(tmp, "lpips.pth")
+    _random_lpips_file(torch, lpips_path)
+    lpips = LPIPS.from_torch_file(lpips_path)
 
-        # 1. full-width gradients at batch 2, card (flash kernel) vs CPU (plain version)
-        g = torch.Generator().manual_seed(7)
-        states = (build_vae(cfg.arch, torch.float32, "cpu", g).state_dict(),
-                  build_discriminator(cfg.train.disc_channels, torch.float32, "cpu", g).state_dict())
-        x_u8 = torch.randint(0, 256, (2, 128, 128, 3), generator=g, dtype=torch.uint8)
-        draws = draw(g, 2, (32, 32, cfg.arch.z_dim))
-        grads, secs, launches = [], [], []
-        for dev in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            got, n = _stage1_grads(torch, cfg, dev, states, lpips, x_u8, draws)
-            grads.append(got)
-            launches.append(n)
-            secs.append(time.perf_counter() - t0)
-        card, cpu = grads
-
-        def rel(names):
-            a = torch.cat([card[n].flatten() for n in names])
-            b = torch.cat([cpu[n].flatten() for n in names])
-            return float((a - b).norm() / b.norm())
-
-        vae_names = [n for n in cpu if n.startswith("vae.")]
-        fake_names = [n for n in cpu if n.startswith("disc_fake.")]
-        real_names = [n for n in cpu if n.startswith("disc_real.")]
-        for side in (card, cpu):  # d_loss's gradient: the sum of its terms'
-            side.update((f.replace("disc_fake.", "disc."), side[f] + side[r])
-                        for f, r in zip(fake_names, real_names))
-        d_loss_err = rel([f.replace("disc_fake.", "disc.") for f in fake_names])
-        qkv = [n for n in vae_names
-               if n.rsplit(".", 2)[-2] in ("to_q", "to_k", "to_v") and n.endswith("weight")]
-        site_names = sorted({n.rsplit(".", 2)[0] for n in qkv})
-        per_site = {s: rel([n for n in qkv if n.startswith(s + ".")]) for s in site_names}
-        errs = dict(vae=rel(vae_names), disc_fake=rel(fake_names), disc_real=rel(real_names),
-                    qkv=rel(qkv))
-        log(f"phase 7 gradients: full-width VAE + discriminator + LPIPS, batch 2, card vs CPU rel "
-            f"L2: VAE parameters {errs['vae']:.3e}, discriminator's fake and real terms "
-            f"{errs['disc_fake']:.3e} and {errs['disc_real']:.3e} (tolerance {GRAD_REL_L2}; their "
-            f"sum, not held, {d_loss_err:.3e}), to_q/to_k/to_v weights of {len(site_names)} sites "
-            f"{errs['qkv']:.3e} "
-            f"(tolerance {GRAD_REL_L2}), worst site {max(per_site.values()):.3e} (tolerance "
-            f"{SITE_GRAD_REL_L2}); flash launches on the card {launches[0]}; card {secs[0]:.1f} s, "
-            f"CPU {secs[1]:.1f} s")
-        if len(site_names) != 2 or launches[0] != 2 or not (
-                max(errs.values()) <= GRAD_REL_L2 and max(per_site.values()) <= SITE_GRAD_REL_L2):
-            raise AssertionError("full-width stage-1 gradients on the card disagree with the CPU")
-        del grads, card, cpu
-
-        # 2. the trainer through its entry point, 25 steps of the shipped config
-        rng = np.random.default_rng(0)
-        n_train, n_dev = VAE_TRAIN_STEPS * B_TRAIN, 2 * B_TRAIN + 4  # the dev tail: 4 of 48
-        np.save(os.path.join(tmp, "train.npy"), rng.integers(0, 256, (n_train, 128, 128, 3), dtype=np.uint8))
-        np.save(os.path.join(tmp, "dev.npy"), rng.integers(0, 256, (n_dev, 128, 128, 3), dtype=np.uint8))
-        with open(VAE_CONFIG) as f:
-            text = _override(f.read(), {
-                "train_set": os.path.join(tmp, "train.npy"), "dev_set": os.path.join(tmp, "dev.npy"),
-                "plot_set": os.path.join(tmp, "plot.npy"),
-                "checkpoints_dir": os.path.join(tmp, "ckpt"), "logs_dir": os.path.join(tmp, "logs"),
-                "epochs": 1, "log_interval": 5, "disc_start": VAE_DISC_START})
-        config = os.path.join(tmp, "config.yaml")
-        with open(config, "w") as f:
-            f.write(text)
-        args = ["--config", config, "--experiment-name", "smoke", "--no-mlflow",
-                "--lpips-weights", lpips_path]
-        attn.flash_attention.launches = 0
-        torch.cuda.synchronize()
+    # 1. full-width gradients at batch 2, card (flash kernel) vs CPU (plain version)
+    g = torch.Generator().manual_seed(7)
+    states = (build_vae(cfg.arch, torch.float32, "cpu", g).state_dict(),
+              build_discriminator(cfg.train.disc_channels, torch.float32, "cpu", g).state_dict())
+    x_u8 = torch.randint(0, 256, (2, 128, 128, 3), generator=g, dtype=torch.uint8)
+    draws = draw(g, 2, (32, 32, cfg.arch.z_dim))
+    grads, secs, launches = [], [], []
+    for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        trainer = train_main(args)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        run_launches = attn.flash_attention.launches
-        dev_batches = -(-n_dev // B_TRAIN)
-        with open(os.path.join(tmp, "logs", "smoke_metrics.csv")) as f:
-            rows = list(csv.DictReader(f))
-        flushes, dev = {}, {}
-        for r in rows:
-            if r["name"].startswith("dev/"):
-                dev[r["name"]] = float(r["value"])
-            else:
-                flushes.setdefault(int(r["step"]), {})[r["name"]] = float(r["value"])
-        steps = sorted(flushes)
-        later = [flushes[s]["util/imgs_per_sec"] for s in steps[1:]]
-        step_ms = sum(5 * B_TRAIN / ips for ips in later) / (5 * len(later)) * 1e3
-        for s in steps:
-            f = flushes[s]
-            loss = (f["vae/percept_loss"] * cfg.train.percept_weight
-                    + f["vae/recon_loss"] * cfg.train.recon_weight
-                    + f["vae/prior_loss"] * cfg.train.prior_weight)
-            gan = (f"d_loss {f['gan/d_loss']:.5f}, g_loss {f['gan/g_loss']:.5f}, fake_acc "
-                   f"{f['gan/fake_acc']:.3f}, real_acc {f['gan/real_acc']:.3f}"
-                   if "gan/d_loss" in f else "discriminator inactive")
-            log(f"phase 7 train flush at step {s + 1}: loss {loss:.5f} (recon {f['vae/recon_loss']:.5f}, "
-                f"percept {f['vae/percept_loss']:.5f}, prior {f['vae/prior_loss']:.3f}), "
-                f"vae grad {f['vae/vae_grad']:.4f}; {gan}; {f['util/imgs_per_sec']:.1f} imgs/s")
-        st = trainer.state
-        ckpt = os.path.join(tmp, "ckpt", "smoke", "vae-epoch-00.ckpt")
-        finite = all(np.isfinite(list(f.values())).all() for f in flushes.values())
-        gan_flushes = [s for s in steps if "gan/d_loss" in flushes[s]]
-        fp32 = all(p.dtype == torch.float32 for p in st.vae_opt.params + st.disc_opt.params)
-        log(f"phase 7 trainer: {st.step} steps ({st.disc_opt.count} with the discriminator) in "
-            f"{run_s:.1f} s through image_diffusion_torch.scripts.train_vae (set-up, dev "
-            f"evaluation and checkpoint included); {step_ms:.2f} ms/step after the first 5 "
-            f"({B_TRAIN / step_ms * 1e3:.1f} imgs/s); flash launches {run_launches} = "
-            f"{VAE_TRAIN_STEPS} steps x 2 + {dev_batches} dev batches x 2; dev recon "
-            f"{dev.get('dev/recon_loss', float('nan')):.5f}, percept "
-            f"{dev.get('dev/percept_loss', float('nan')):.5f}; fp32 parameters {fp32}; "
-            f"checkpoint written {os.path.exists(ckpt)}")
-        if not (st.step == VAE_TRAIN_STEPS and st.disc_opt.count == VAE_TRAIN_STEPS - VAE_DISC_START
-                and len(steps) == VAE_TRAIN_STEPS // 5 and finite and fp32
-                and gan_flushes == [s for s in steps if s >= VAE_DISC_START]
-                and set(dev) == {"dev/recon_loss", "dev/percept_loss"}
-                and np.isfinite(list(dev.values())).all() and os.path.exists(ckpt)):
-            raise AssertionError("stage-1 trainer: wrong step counts, non-finite metrics, the "
-                                 "discriminator active at the wrong steps, or no checkpoint")
-        if run_launches != 2 * (VAE_TRAIN_STEPS + dev_batches):
-            raise AssertionError(f"stage-1 trainer: {run_launches} flash launches, expected 2 per "
-                                 f"step and per dev batch")
+        got, n = _stage1_grads(torch, cfg, dev, states, lpips, x_u8, draws)
+        grads.append(got)
+        launches.append(n)
+        secs.append(time.perf_counter() - t0)
+    card, cpu = grads
 
-        # 3. resume from the checkpoint: step, parameters, BN statistics and moments equal
-        resumed = train_main(args + ["--checkpoint", ckpt]).state
+    def rel(names):
+        a = torch.cat([card[n].flatten() for n in names])
+        b = torch.cat([cpu[n].flatten() for n in names])
+        return float((a - b).norm() / b.norm())
 
-        def tensors(s):
-            return (s.vae_opt.params + s.disc_opt.params + sum(s.vae_opt.moments(), [])
-                    + sum(s.disc_opt.moments(), []) + list(s.disc.buffers()))
+    vae_names = [n for n in cpu if n.startswith("vae.")]
+    fake_names = [n for n in cpu if n.startswith("disc_fake.")]
+    real_names = [n for n in cpu if n.startswith("disc_real.")]
+    for side in (card, cpu):  # d_loss's gradient: the sum of its terms'
+        side.update((f.replace("disc_fake.", "disc."), side[f] + side[r])
+                    for f, r in zip(fake_names, real_names))
+    d_loss_err = rel([f.replace("disc_fake.", "disc.") for f in fake_names])
+    qkv = [n for n in vae_names
+           if n.rsplit(".", 2)[-2] in ("to_q", "to_k", "to_v") and n.endswith("weight")]
+    site_names = sorted({n.rsplit(".", 2)[0] for n in qkv})
+    per_site = {s: rel([n for n in qkv if n.startswith(s + ".")]) for s in site_names}
+    errs = dict(vae=rel(vae_names), disc_fake=rel(fake_names), disc_real=rel(real_names),
+                qkv=rel(qkv))
+    log(f"phase 7 gradients: full-width VAE + discriminator + LPIPS, batch 2, card vs CPU rel "
+        f"L2: VAE parameters {errs['vae']:.3e}, discriminator's fake and real terms "
+        f"{errs['disc_fake']:.3e} and {errs['disc_real']:.3e} (tolerance {GRAD_REL_L2}; their "
+        f"sum, not held, {d_loss_err:.3e}), to_q/to_k/to_v weights of {len(site_names)} sites "
+        f"{errs['qkv']:.3e} "
+        f"(tolerance {GRAD_REL_L2}), worst site {max(per_site.values()):.3e} (tolerance "
+        f"{SITE_GRAD_REL_L2}); flash launches on the card {launches[0]}; card {secs[0]:.1f} s, "
+        f"CPU {secs[1]:.1f} s")
+    if len(site_names) != 2 or launches[0] != 2 or not (
+            max(errs.values()) <= GRAD_REL_L2 and max(per_site.values()) <= SITE_GRAD_REL_L2):
+        raise AssertionError("full-width stage-1 gradients on the card disagree with the CPU")
+    del grads, card, cpu
 
-        same = ((resumed.step, resumed.disc_opt.count) == (st.step, st.disc_opt.count)
-                and all(torch.equal(a, b) for a, b in zip(tensors(st), tensors(resumed))))
-        log(f"phase 7 resume: step {resumed.step}, discriminator updates {resumed.disc_opt.count}; "
-            f"parameters, BatchNorm statistics and both Adams' moments equal: {same}")
-        if not same:
-            raise AssertionError("stage-1 resume: step, parameters, statistics or moments differ")
-        del resumed
+    # 2. the trainer through its entry point, 25 steps of the shipped config
+    rng = np.random.default_rng(0)
+    n_train, n_dev = VAE_TRAIN_STEPS * B_TRAIN, 2 * B_TRAIN + 4  # the dev tail: 4 of 48
+    np.save(os.path.join(tmp, "train.npy"), rng.integers(0, 256, (n_train, 128, 128, 3), dtype=np.uint8))
+    np.save(os.path.join(tmp, "dev.npy"), rng.integers(0, 256, (n_dev, 128, 128, 3), dtype=np.uint8))
+    with open(VAE_CONFIG) as f:
+        text = _override(f.read(), {
+            "train_set": os.path.join(tmp, "train.npy"), "dev_set": os.path.join(tmp, "dev.npy"),
+            "plot_set": os.path.join(tmp, "plot.npy"),
+            "checkpoints_dir": os.path.join(tmp, "ckpt"), "logs_dir": os.path.join(tmp, "logs"),
+            "epochs": 1, "log_interval": 5, "disc_start": VAE_DISC_START})
+    config = os.path.join(tmp, "config.yaml")
+    with open(config, "w") as f:
+        f.write(text)
+    args = ["--config", config, "--experiment-name", "smoke", "--no-mlflow",
+            "--lpips-weights", lpips_path]
+    attn.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = train_main(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_launches = attn.flash_attention.launches
+    dev_batches = -(-n_dev // B_TRAIN)
+    with open(os.path.join(tmp, "logs", "smoke_metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    flushes, dev = {}, {}
+    for r in rows:
+        if r["name"].startswith("dev/"):
+            dev[r["name"]] = float(r["value"])
+        else:
+            flushes.setdefault(int(r["step"]), {})[r["name"]] = float(r["value"])
+    steps = sorted(flushes)
+    later = [flushes[s]["util/imgs_per_sec"] for s in steps[1:]]
+    step_ms = sum(5 * B_TRAIN / ips for ips in later) / (5 * len(later)) * 1e3
+    for s in steps:
+        f = flushes[s]
+        loss = (f["vae/percept_loss"] * cfg.train.percept_weight
+                + f["vae/recon_loss"] * cfg.train.recon_weight
+                + f["vae/prior_loss"] * cfg.train.prior_weight)
+        gan = (f"d_loss {f['gan/d_loss']:.5f}, g_loss {f['gan/g_loss']:.5f}, fake_acc "
+               f"{f['gan/fake_acc']:.3f}, real_acc {f['gan/real_acc']:.3f}"
+               if "gan/d_loss" in f else "discriminator inactive")
+        log(f"phase 7 train flush at step {s + 1}: loss {loss:.5f} (recon {f['vae/recon_loss']:.5f}, "
+            f"percept {f['vae/percept_loss']:.5f}, prior {f['vae/prior_loss']:.3f}), "
+            f"vae grad {f['vae/vae_grad']:.4f}; {gan}; {f['util/imgs_per_sec']:.1f} imgs/s")
+    st = trainer.state
+    ckpt = os.path.join(tmp, "ckpt", "smoke", "vae-epoch-00.ckpt")
+    finite = all(np.isfinite(list(f.values())).all() for f in flushes.values())
+    gan_flushes = [s for s in steps if "gan/d_loss" in flushes[s]]
+    fp32 = all(p.dtype == torch.float32 for p in st.vae_opt.params + st.disc_opt.params)
+    log(f"phase 7 trainer: {st.step} steps ({st.disc_opt.count} with the discriminator) in "
+        f"{run_s:.1f} s through image_diffusion_torch.scripts.train_vae (set-up, dev "
+        f"evaluation and checkpoint included); {step_ms:.2f} ms/step after the first 5 "
+        f"({B_TRAIN / step_ms * 1e3:.1f} imgs/s); flash launches {run_launches} = "
+        f"{VAE_TRAIN_STEPS} steps x 2 + {dev_batches} dev batches x 2; dev recon "
+        f"{dev.get('dev/recon_loss', float('nan')):.5f}, percept "
+        f"{dev.get('dev/percept_loss', float('nan')):.5f}; fp32 parameters {fp32}; "
+        f"checkpoint written {os.path.exists(ckpt)}")
+    if not (st.step == VAE_TRAIN_STEPS and st.disc_opt.count == VAE_TRAIN_STEPS - VAE_DISC_START
+            and len(steps) == VAE_TRAIN_STEPS // 5 and finite and fp32
+            and gan_flushes == [s for s in steps if s >= VAE_DISC_START]
+            and set(dev) == {"dev/recon_loss", "dev/percept_loss"}
+            and np.isfinite(list(dev.values())).all() and os.path.exists(ckpt)):
+        raise AssertionError("stage-1 trainer: wrong step counts, non-finite metrics, the "
+                             "discriminator active at the wrong steps, or no checkpoint")
+    if run_launches != 2 * (VAE_TRAIN_STEPS + dev_batches):
+        raise AssertionError(f"stage-1 trainer: {run_launches} flash launches, expected 2 per "
+                             f"step and per dev batch")
 
-        # 4. profile 3 train steps with the discriminator active
-        x_dev = torch.from_numpy(np.load(os.path.join(tmp, "train.npy"))[:B_TRAIN]).cuda()
+    # 3. resume from the checkpoint: step, parameters, BN statistics and moments equal
+    resumed = train_main(args + ["--checkpoint", ckpt]).state
+
+    def tensors(s):
+        return (s.vae_opt.params + s.disc_opt.params + sum(s.vae_opt.moments(), [])
+                + sum(s.disc_opt.moments(), []) + list(s.disc.buffers()))
+
+    same = ((resumed.step, resumed.disc_opt.count) == (st.step, st.disc_opt.count)
+            and all(torch.equal(a, b) for a, b in zip(tensors(st), tensors(resumed))))
+    log(f"phase 7 resume: step {resumed.step}, discriminator updates {resumed.disc_opt.count}; "
+        f"parameters, BatchNorm statistics and both Adams' moments equal: {same}")
+    if not same:
+        raise AssertionError("stage-1 resume: step, parameters, statistics or moments differ")
+    del resumed
+
+    # 4. profile 3 train steps with the discriminator active
+    x_dev = torch.from_numpy(np.load(os.path.join(tmp, "train.npy"))[:B_TRAIN]).cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
     prof, kernels, wall = device_profile(
         torch, lambda: trainer.train_step(st, x_dev, gen, disc_active=True), iters=3)
@@ -763,7 +778,162 @@ def phase_vae_train(torch, np, attn):
         f"(idle share {idle_share(busy, wall)}); {kernels:.0f} kernels per step; flash_attention "
         f"{flash_ms:.3f} ms; top: " + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top))
     return dict(step_ms=step_ms, busy_ms=busy, wall_ms=wall, launches=run_launches,
-                flash_device_ms=flash_ms, grad_rel_l2=errs)
+                flash_device_ms=flash_ms, grad_rel_l2=errs, ckpt=ckpt,
+                images=os.path.join(tmp, "train.npy"))
+
+
+def phase_clis(torch, np, attn, vae_ckpt: str, images_path: str, tmp: str):
+    """Phase 8: the two stages joined through the CLIs' `main`s, at full
+    width: prepare_dataset on phase 7's images and checkpoint,
+    train_diffusion on those latents with an EMA, make_bundle --ema, and
+    sample_grid's defaults (ddpm-1000, 27 images), then dpm-20.  Each
+    CLI's kernel launches are counted from 0 around it."""
+    import csv
+
+    from image_diffusion_torch.compat.from_jax import unet_state_dict
+    from image_diffusion_torch.core import checkpoint as ckpt
+    from image_diffusion_torch.models.io import load_vae, read_vae
+    from image_diffusion_torch.pipelines import DiffusionPipeline
+    from image_diffusion_torch.scripts import (make_bundle, prepare_dataset, sample_grid,
+                                               train_diffusion)
+
+    # 1. prepare_dataset diffusion --labels-mode random, batches of 64
+    lat_dir = os.path.join(tmp, "latents")
+    images = np.load(images_path, mmap_mode="r")
+    n = images.shape[0]
+    batches = -(-n // B_ENCODE)
+    attn.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prepare_dataset.main(["diffusion", "--diffusion-images", images_path, "--vae-checkpoint",
+                          vae_ckpt, "--out", lat_dir, "--labels-mode", "random"])
+    prep_s = time.perf_counter() - t0
+    prep_flash = attn.flash_attention.launches
+    latents = np.load(os.path.join(lat_dir, "diffusion_dataset.npy"))
+    labels = np.load(os.path.join(lat_dir, "diffusion_labels.npy"))
+    # the encode alone, on the same kernels: the same bytes
+    vae, _ = load_vae(vae_ckpt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = prepare_dataset.extract_latents(vae, images, B_ENCODE, "cuda")
+    encode_s = time.perf_counter() - t0
+    del vae
+    rows = [0, 1, n - 1]
+    vae_cpu, _ = load_vae(vae_ckpt, torch.float32, "cpu")
+    with torch.inference_mode():
+        ref = prepare_dataset.encode(vae_cpu, torch.from_numpy(images[rows]))
+    enc_err = rel_l2(torch.from_numpy(latents[rows]), ref)
+    del vae_cpu
+    log(f"phase 8 prepare_dataset: {latents.shape} {latents.dtype} from {n} images of phase 7 "
+        f"in {prep_s:.2f} s through the CLI ({n / prep_s:.1f} images/s, VAE load and files "
+        f"included), the encode alone {encode_s:.3f} s ({n / encode_s:.1f} images/s), the same "
+        f"bytes {np.array_equal(again, latents)}; flash launches {prep_flash} over {batches} "
+        f"batches of up to {B_ENCODE}; rows {rows} vs the CPU at fp32 rel L2 {enc_err:.3e} "
+        f"(tolerance {ENCODE_REL_L2}); labels per class {np.bincount(labels, minlength=3).tolist()}")
+    if not (latents.shape == (n, 32, 32, 6) and latents.dtype == np.float16
+            and np.isfinite(latents).all() and labels.shape == (n,) and labels.dtype == np.uint8
+            and np.array_equal(again, latents)):
+        raise AssertionError("prepare_dataset: wrong latents or labels")
+    if prep_flash != batches:
+        raise AssertionError(f"prepare_dataset: {prep_flash} flash launches, expected one per "
+                             f"batch ({batches})")
+    if not enc_err <= ENCODE_REL_L2:
+        raise AssertionError("prepare_dataset's latents on the card disagree with the CPU")
+
+    # 2. train_diffusion on exactly those latents and labels, with an EMA
+    with open(CONFIG) as f:
+        text = _override(f.read(), {
+            "train_set": os.path.join(lat_dir, "diffusion_dataset.npy"),
+            "train_labels": os.path.join(lat_dir, "diffusion_labels.npy"),
+            "checkpoints_dir": os.path.join(tmp, "ckpt"), "logs_dir": os.path.join(tmp, "logs"),
+            "epochs": 1, "log_interval": 5}) + "ema_decay: 0.999\n"
+    config = os.path.join(tmp, "diffusion.yaml")
+    with open(config, "w") as f:
+        f.write(text)
+    steps = n // B_TRAIN
+    attn.packed_attention.launches = attn.packed_attention_bwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = train_diffusion.main(["--config", config, "--experiment-name", "chain",
+                                    "--no-mlflow"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = (attn.packed_attention.launches, attn.packed_attention_bwd.launches)
+    unet_ckpt = os.path.join(tmp, "ckpt", "chain", "unet-epoch-00.ckpt")
+    with open(os.path.join(tmp, "logs", "chain_metrics.csv")) as f:
+        losses = [float(r["value"]) for r in csv.DictReader(f) if r["name"] == "unet/loss"]
+    log(f"phase 8 train_diffusion on those latents: {trainer.state.step} steps in {train_s:.1f} s "
+        f"(set-up and checkpoint included); kernel launches {train_launches[0]} forward, "
+        f"{train_launches[1]} backward; loss at the flushes "
+        + " ".join(f"{v:.5f}" for v in losses) + f"; EMA kept {trainer.state.ema is not None}")
+    if not (trainer.state.step == steps and losses and np.isfinite(losses).all()
+            and trainer.state.ema is not None and os.path.exists(unet_ckpt)):
+        raise AssertionError("train_diffusion on prepare_dataset's latents: wrong step count, "
+                             "non-finite loss, no EMA or no checkpoint")
+    if train_launches != (14 * steps, 14 * steps):
+        raise AssertionError(f"train_diffusion: {train_launches} kernel launches, expected 14 + 14 "
+                             f"per step")
+    del trainer
+
+    # 3. make_bundle --ema; the bundle read back holds the checkpoints' fp32 trees
+    bundle = os.path.join(tmp, "bundle.ckpt")
+    make_bundle.main(["--vae", vae_ckpt, "--unet", unet_ckpt, "--config", config, "--out", bundle,
+                      "--ema"])
+    pipe = DiffusionPipeline.from_checkpoint(bundle)
+    trees, _ = ckpt.load_checkpoint(unet_ckpt)
+    ema, raw = unet_state_dict(trees["unet_ema"]), unet_state_dict(trees["unet"])
+    vae_state = read_vae(vae_ckpt)[1]
+    same = (set(pipe.unet_state) == set(ema) and set(pipe.vae_state) == set(vae_state)
+            and all(torch.equal(pipe.unet_state[k], v) for k, v in ema.items())
+            and all(torch.equal(pipe.vae_state[k], v) for k, v in vae_state.items()))
+    ema_differs = any(not torch.equal(ema[k], raw[k]) for k in ema)
+    log(f"phase 8 make_bundle --ema: read back on {pipe.device} in {pipe.dtype}; weights equal "
+        f"the checkpoints' fp32 trees (the UNet's EMA) bit for bit: {same}; EMA differs from the "
+        f"raw weights: {ema_differs}")
+    if not (same and ema_differs):
+        raise AssertionError("make_bundle: the bundle does not hold the checkpoints' EMA and VAE "
+                             "weights")
+    del pipe, trees, ema, raw, vae_state
+
+    # 4. sample_grid's defaults (ddpm-1000, --cfg 1 10), then --sampler dpm
+    png = os.path.join(tmp, "grid.png")
+    out = {}
+    for name, extra in (("ddpm", []), ("dpm", ["--sampler", "dpm"])):
+        args = sample_grid.parse_args([bundle, "--out", png, *extra])
+        attn.packed_attention.launches = attn.flash_attention.launches = 0
+        grid_pipe, scales, imgs, secs = sample_grid.sample(args)
+        launches = (attn.packed_attention.launches, attn.flash_attention.launches)
+        t0 = time.perf_counter()
+        ref = grid_pipe.sample(scales, seed=args.seed, sampler=args.sampler).cpu()
+        ref_s = time.perf_counter() - t0
+        diff = float((imgs - ref).abs().max())
+        n_steps = 1000 if name == "ddpm" else 20
+        out[name] = dict(seconds=secs, pipe_seconds=ref_s, launches=launches, max_diff=diff)
+        log(f"phase 8 sample_grid {name}-{n_steps}: {tuple(imgs.shape)} {imgs.dtype} in {secs:.2f} s "
+            f"({imgs.shape[0] / secs:.3f} img/s, the CLI's log line); {launches[0]} packed and "
+            f"{launches[1]} flash kernel launches; against pipe.sample with the same seed and "
+            f"arguments, right after it ({ref_s:.2f} s), max|diff| {diff:.3e}; range "
+            f"[{float(imgs.min()):.3f}, {float(imgs.max()):.3f}]")
+        if not (imgs.shape == (27, 128, 128, 3) and torch.isfinite(imgs).all() and diff == 0.0):
+            raise AssertionError(f"sample_grid {name}: wrong shape, non-finite images, or images "
+                                 f"that differ from pipe.sample's")
+        if launches != (14 * n_steps, 1):
+            raise AssertionError(f"sample_grid {name}: {launches} packed and flash launches, "
+                                 f"expected {14 * n_steps} and 1")
+        del grid_pipe, imgs, ref
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        figure = "not drawn: matplotlib is not installed on this host (the figure is host work)"
+    else:
+        sample_grid.main([bundle, "--out", png, "--sampler", "dpm"])
+        size = os.path.getsize(png)
+        figure = f"drawn by sample_grid.main, {size} bytes"
+        if not size:
+            raise AssertionError("sample_grid wrote an empty figure")
+    log(f"phase 8 sample_grid figure: {figure}")
+    return dict(prep_s=prep_s, encode_s=encode_s, images=n, prep_flash=prep_flash,
+                encode_rel_l2=enc_err, train_launches=train_launches, grids=out)
 
 
 def main() -> int:
@@ -798,6 +968,13 @@ def main() -> int:
     clock_hz = sm_clock_hz()
     log(f"phase 1 card: {name}; {smi}; max SM clock {clock_hz / 1e6:.0f} MHz; python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, triton {triton_version}, devices {torch.cuda.device_count()}")
+    host_packages = {}
+    for package in ("matplotlib", "PIL", "tqdm"):  # the CLIs' figures, image resizing, bars
+        try:
+            host_packages[package] = __import__(package).__version__
+        except ImportError:
+            host_packages[package] = "absent"
+    log("phase 1 host packages: " + ", ".join(f"{k} {v}" for k, v in host_packages.items()))
 
     # phase 2: build every kernel of the path
     nvcc_version = subprocess.run([nvcc(), "--version"], capture_output=True, text=True,
@@ -939,8 +1116,13 @@ def main() -> int:
     train = phase_train(torch, np, attn, unet_state)
     torch.cuda.empty_cache()
 
-    # phase 7: stage-1 training on the card
-    vae_train = phase_vae_train(torch, np, attn)
+    with tempfile.TemporaryDirectory() as tmp:
+        # phase 7: stage-1 training on the card
+        vae_train = phase_vae_train(torch, np, attn, tmp)
+        torch.cuda.empty_cache()
+
+        # phase 8: the two stages joined through the CLIs
+        clis = phase_clis(torch, np, attn, vae_train["ckpt"], vae_train["images"], tmp)
 
     per_forward = {k: 2 * sum(s[k] for s in sites)
                    for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
@@ -956,6 +1138,12 @@ def main() -> int:
         "source": "image_diffusion_torch/ops/csrc/packed_attention.cu",
         "replaces": "image_diffusion_tpu/ops/pallas/attention.py:152",
         "launches": main_launches,
+        "launches_by_path": {"phase 5 ddpm-1000 grid": main_launches,
+                             "phase 5 dpm-20 grid": dpm_launches,
+                             "phase 6 train_diffusion": train["launches"]["forward"],
+                             "phase 8 train_diffusion": clis["train_launches"][0],
+                             "phase 8 sample_grid ddpm": clis["grids"]["ddpm"]["launches"][0],
+                             "phase 8 sample_grid dpm": clis["grids"]["dpm"]["launches"][0]},
         "max_abs_err": max(s["max_abs_err"] for s in sites),
         **per_forward,
         "bound_by": "operations" if bound_ops > per_forward["bound_ms"] / 2 else "bytes",
@@ -967,6 +1155,8 @@ def main() -> int:
         "source": "image_diffusion_torch/ops/csrc/packed_attention_bwd.cu",
         "replaces": "image_diffusion_tpu/ops/pallas/attention.py:288",
         "launches": train["launches"]["backward"],
+        "launches_by_path": {"phase 6 train_diffusion": train["launches"]["backward"],
+                             "phase 8 train_diffusion": clis["train_launches"][1]},
         "max_abs_err": max(s["max_abs_err"] for s in bwd_sites),
         **per_backward,
         "bound_by": "operations" if bwd_bound_ops > per_backward["bound_ms"] / 2 else "bytes",
@@ -980,8 +1170,13 @@ def main() -> int:
         "source": "image_diffusion_torch/ops/csrc/flash_attention.cu",
         "replaces": "image_diffusion_tpu/ops/pallas/attention.py:40",
         "launches": vae_train["launches"],
+        "launches_by_path": {"phase 5 ddpm-1000 grid": grid_flash, "phase 5 dpm-20 grid": dpm_flash,
+                             "phase 7 train_vae": vae_train["launches"],
+                             "phase 8 prepare_dataset": clis["prep_flash"],
+                             "phase 8 sample_grid ddpm": clis["grids"]["ddpm"]["launches"][1],
+                             "phase 8 sample_grid dpm": clis["grids"]["dpm"]["launches"][1]},
         "max_abs_err": max(b["max_abs_err"] for b in flash_batches),
-        **{k: flash_batches[-1][k]
+        **{k: next(b for b in flash_batches if b["B"] == B_TRAIN)[k]
            for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
                      "bound_by", "exp_ms", "einsum_backward_device_ms")},
         "per": "one call at the VAE's attention site, B=48 (the training batch), H=1, N=1024, D=384; "
@@ -996,7 +1191,13 @@ def main() -> int:
         "vae_train_step_ms": vae_train["step_ms"], "vae_train_step_device_busy_ms": vae_train["busy_ms"],
         "vae_train_step_profiled_ms": vae_train["wall_ms"], "vae_train_flash_launches": vae_train["launches"],
         "vae_train_flash_device_ms": vae_train["flash_device_ms"],
-        "vae_train_grad_rel_l2": vae_train["grad_rel_l2"]}
+        "vae_train_grad_rel_l2": vae_train["grad_rel_l2"], "host_packages": host_packages,
+        "prepare_dataset_s": clis["prep_s"], "prepare_dataset_encode_s": clis["encode_s"],
+        "prepare_dataset_images": clis["images"], "prepare_dataset_rel_l2": clis["encode_rel_l2"],
+        "sample_grid_ddpm_s": clis["grids"]["ddpm"]["seconds"],
+        "sample_grid_dpm_s": clis["grids"]["dpm"]["seconds"],
+        "phase8_pipe_sample_ddpm_s": clis["grids"]["ddpm"]["pipe_seconds"],
+        "phase8_pipe_sample_dpm_s": clis["grids"]["dpm"]["pipe_seconds"]}
     log(json.dumps(record))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,13 +1,15 @@
-"""PyTorch/CUDA port of the two-stage latent-diffusion sampler.
+"""PyTorch/CUDA port of the two-stage latent-diffusion system.
 
-Samples classifier-free-guidance grids from an inference bundle written by
-(or for) `image_diffusion_tpu`, at the full width of the shipped models.
-Public functions keep the NHWC layout of the JAX package; modules hold
-NCHW tensors in `torch.channels_last` memory format internally.
+Trains the stage-1 VAE-GAN and the stage-2 UNet, extracts latents, makes
+inference bundles and samples classifier-free-guidance grids, through the
+command lines in `scripts/`, with files and bundles interchangeable with
+`image_diffusion_tpu`'s, at the full width of the shipped models.  Public
+functions keep the NHWC layout of the JAX package; modules hold NCHW
+tensors in `torch.channels_last` memory format internally.
 
 Entry points run on the CUDA card unless the caller passes
-`device="cpu"`; the self-attention forward runs as a hand-written Hopper
-kernel (`ops/csrc/packed_attention.cu`) on CUDA tensors.
+`device="cpu"`; self-attention runs as hand-written Hopper kernels
+(`ops/csrc/`) on CUDA tensors.
 """
 
 from .core.config import ScheduleConfig, UNetArch, VAEArch

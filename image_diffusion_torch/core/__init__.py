@@ -1,4 +1,4 @@
-"""Configuration, precision policy, devices and checkpoint I/O."""
+"""Configuration, precision policy, devices, checkpoint I/O, figures and CLI plumbing."""
 
 from __future__ import annotations
 

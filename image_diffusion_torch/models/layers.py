@@ -170,7 +170,7 @@ class TimeEmbedding(nn.Module):
         self.register_buffer("factor", sinusoid_factor(dim))
         self.embeddings = nn.Sequential(Linear(dim, 4 * dim), nn.SiLU(), Linear(4 * dim, dim))
 
-    def reset_buffers(self):
+    def reset_state(self, generator=None):
         self.factor.copy_(sinusoid_factor(self.dim))
 
     def forward(self, t):
@@ -228,9 +228,10 @@ def materialize(model: nn.Module, dtype: torch.dtype, device: torch.device,
     order) with torch's default statistics: U(+-1/sqrt(fan_in)) for conv
     and linear weights and biases, N(0, 1) for embeddings.  Without one,
     weights are zero, ready for `load_state_dict`.  GroupNorm starts at
-    (1, 0); modules with buffers reset them (`reset_buffers`).  Conv and
-    linear parameters are then cast to `dtype` (the parameter dtype), and
-    4-D weights go to channels_last."""
+    (1, 0).  Modules with buffers, or whose state has its own initial
+    distribution (the VQ codebook), then set it (`reset_state(generator)`).
+    Conv and linear parameters are then cast to `dtype` (the parameter
+    dtype), and 4-D weights go to channels_last."""
     model.to_empty(device=device)
 
     def fill(p, draw):
@@ -246,9 +247,9 @@ def materialize(model: nn.Module, dtype: torch.dtype, device: torch.device,
         elif isinstance(m, GroupNorm):
             m.weight.fill_(1.0)
             m.bias.fill_(0.0)
-        if hasattr(m, "reset_buffers"):
-            m.reset_buffers()
     for m in model.modules():
+        if hasattr(m, "reset_state"):
+            m.reset_state(generator)
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             m.to(dtype=dtype, memory_format=torch.channels_last)
     return model

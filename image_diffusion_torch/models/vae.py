@@ -101,9 +101,15 @@ class Codebook(nn.Module):
         self.register_buffer("ema_cluster_size", torch.zeros(size))
         self.register_buffer("ema_w", torch.zeros(size, dim))
 
-    def reset_buffers(self):
+    def reset_state(self, generator: torch.Generator | None = None):
+        """Embeddings and EMA sums from U(+-1/K), as the JAX package's and
+        the original's codebook draw them (zero without a generator);
+        cluster sizes zero."""
+        bound = 1.0 / self.embeddings.num_embeddings
+        for t in (self.embeddings.weight, self.ema_w):
+            t.copy_(torch.zeros(t.shape) if generator is None
+                    else torch.empty(t.shape).uniform_(-bound, bound, generator=generator))
         self.ema_cluster_size.zero_()
-        self.ema_w.zero_()
 
     def quantize(self, z: torch.Tensor) -> torch.Tensor:
         """NHWC latents -> nearest codes, fp32, through the straight-through

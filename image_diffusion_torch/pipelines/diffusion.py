@@ -25,6 +25,7 @@ from ..compat.from_jax import unet_flax_params, unet_state_dict, vae_flax_variab
 from ..core import checkpoint as ckpt
 from ..core import resolve_device
 from ..core.config import ScheduleConfig, UNetArch, VAEArch, _build
+from ..core.progress import progress as progress_bar
 from ..models import build_unet, build_vae
 from ..ops import schedule as S
 
@@ -36,13 +37,19 @@ def to_uint8(imgs: torch.Tensor) -> torch.Tensor:
     return (torch.clamp((x + 1.0) / 2.0, 0.0, 1.0) * 255.0).to(torch.uint8)
 
 
+def _host_fp32(state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    return {k: v.detach().to("cpu", torch.float32) for k, v in state.items()}
+
+
 class DiffusionPipeline:
     """Composes VAE + UNet + schedule + class vocabulary for sampling.
 
     `vae_state` / `unet_state` are the port's state dicts (see
-    `compat.from_jax` for the flax layout).  Weights are held in the
-    compute dtype, so in bf16 mode `to_checkpoint` writes bf16-rounded
-    weights (stored as fp32, as the format has it)."""
+    `compat.from_jax` for the flax layout).  The models compute in
+    `dtype`; the pipeline also keeps the weights it was given as fp32
+    copies on the host, and `to_checkpoint` writes those, so a bundle
+    read at bf16 and written back is unchanged (the JAX package writes the
+    variables it was given likewise)."""
 
     def __init__(self, vae_arch: VAEArch, vae_state: Mapping[str, torch.Tensor],
                  unet_arch: UNetArch, unet_state: Mapping[str, torch.Tensor],
@@ -51,6 +58,7 @@ class DiffusionPipeline:
         self.device = resolve_device(device)
         self.vae_arch, self.unet_arch, self.schedule_cfg = vae_arch, unet_arch, schedule_cfg
         self.dtype = dtype
+        self.vae_state, self.unet_state = _host_fp32(vae_state), _host_fp32(unet_state)
         self.vae = build_vae(vae_arch, dtype=dtype, device=self.device)
         self.vae.load_state_dict(vae_state)
         self.unet = build_unet(unet_arch, dtype=dtype, device=self.device)
@@ -70,7 +78,8 @@ class DiffusionPipeline:
     def sample_batch(self, labels, cfg_scales, x_init, sampler: str = "dpm",
                      num_inference_steps: int | None = None, eta: float = 0.0,
                      generator: torch.Generator | None = None,
-                     noise: torch.Tensor | None = None, output: str = "float32") -> torch.Tensor:
+                     noise: torch.Tensor | None = None, output: str = "float32",
+                     progress: bool = False) -> torch.Tensor:
         """Sample one explicit batch: per-row class labels, guidance scales
         and initial latents (B, h, w, z) -> (B, H, W, 3) images in [-1, 1]
         (`output="float32"`) or as uint8 pixels (`output="uint8"`).
@@ -79,7 +88,8 @@ class DiffusionPipeline:
         "dpm" (DPM-Solver++(2M)) over `num_inference_steps` (default 50 for
         ddim, 20 for dpm).  The stochastic samplers (ddpm; ddim with
         eta > 0) take step noise from `noise`, a (T, B, h, w, z) block whose
-        row i is used at step i, or else draw it from `generator`."""
+        row i is used at step i, or else draw it from `generator`.
+        `progress` shows a per-step bar (`core.progress`)."""
         if output not in ("float32", "uint8"):
             raise ValueError(f"unknown output {output!r}; expected 'float32' or 'uint8'")
         dev = self.device
@@ -109,20 +119,23 @@ class DiffusionPipeline:
         def tvec(t):
             return torch.full((B,), t, dtype=torch.int64, device=dev)
 
+        def steps(it):
+            return progress_bar(it, total=len(it), desc="sampling") if progress else it
+
         if sampler == "ddpm":
-            for i, t in enumerate(range(self.sched.num_steps - 1, -1, -1)):
+            for i, t in enumerate(steps(range(self.sched.num_steps - 1, -1, -1))):
                 x, _ = S.ddpm_step(self.sched, x, eps_fn(x, t), tvec(t), step_noise(i))
         elif sampler in ("ddim", "dpm"):
             n = num_inference_steps or (20 if sampler == "dpm" else 50)
             ts = S.make_timesteps(self.sched.num_steps, n).tolist()
             pairs = list(zip(ts, ts[1:] + [-1]))
             if sampler == "ddim":
-                for i, (t, t_prev) in enumerate(pairs):
+                for i, (t, t_prev) in enumerate(steps(pairs)):
                     z = step_noise(i) if eta else torch.zeros_like(x)
                     x, _ = S.ddim_step(self.sched, x, eps_fn(x, t), tvec(t), tvec(t_prev), z, eta)
             else:
                 x0_prev, h_prev = torch.zeros_like(x), -1.0
-                for t, t_prev in pairs:
+                for t, t_prev in steps(pairs):
                     x, x0_prev, h_prev = S.dpmpp_2m_step(
                         self.sched, x, eps_fn(x, t), tvec(t), tvec(t_prev), x0_prev, h_prev)
         else:
@@ -134,13 +147,14 @@ class DiffusionPipeline:
     def sample(self, cfg_scales: Sequence[float] | float, num_images: int = 10,
                seed: int | None = None, sampler: str = "ddpm",
                num_inference_steps: int | None = None, eta: float = 0.0,
-               output: str = "float32") -> torch.Tensor:
+               output: str = "float32", progress: bool = False) -> torch.Tensor:
         """Sample a classes x scales grid -> (B, H, W, 3) images.
 
         A list of scales gives every class at every scale (B = classes x
         scales, scale-major rows); a scalar gives `num_images` per class at
         that scale.  Initial latents and step noise come from one generator
-        seeded with `seed` (0 when None) on the pipeline's device."""
+        seeded with `seed` (0 when None) on the pipeline's device;
+        `progress` as in `sample_batch`."""
         if not isinstance(cfg_scales, (list, tuple)):
             cfg_scales = [float(cfg_scales)] * num_images
         n_classes, n_scales = len(self.classes), len(cfg_scales)
@@ -151,7 +165,7 @@ class DiffusionPipeline:
                              device=self.device)
         return self.sample_batch(labels, scales, x_init, sampler=sampler,
                                  num_inference_steps=num_inference_steps, eta=eta,
-                                 generator=gen, output=output)
+                                 generator=gen, output=output, progress=progress)
 
     # ------------------------------------------------------------------ io
 
@@ -165,8 +179,8 @@ class DiffusionPipeline:
                 "scheduler": self.schedule_cfg.to_dict(),
                 "classes": ",".join(self.classes),
             },
-            vae=vae_flax_variables(self.vae.state_dict()),
-            unet={"params": unet_flax_params(self.unet.state_dict())},
+            vae=vae_flax_variables(self.vae_state),
+            unet={"params": unet_flax_params(self.unet_state)},
         )
 
     @classmethod

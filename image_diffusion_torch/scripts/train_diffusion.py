@@ -14,6 +14,8 @@ import argparse
 
 import numpy as np
 
+from ..core.cli import add_device_argument
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
@@ -22,7 +24,7 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", type=str, default=None, help="Resume from checkpoint.")
     p.add_argument("--comment", type=str, default=None)
     p.add_argument("--no-mlflow", action="store_true")
-    p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu.")
+    add_device_argument(p)
     return p.parse_args(argv)
 
 

@@ -19,6 +19,8 @@ import warnings
 
 import numpy as np
 
+from ..core.cli import add_device_argument
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
@@ -32,7 +34,7 @@ def parse_args(argv=None):
     p.add_argument("--allow-no-lpips", action="store_true",
                    help="Acknowledge training WITHOUT the perceptual loss, which "
                         "changes what the VAE optimizes.")
-    p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu.")
+    add_device_argument(p)
     return p.parse_args(argv)
 
 

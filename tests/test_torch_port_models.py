@@ -197,3 +197,19 @@ def test_tiny_vae_matches_flax_fp32(vq):
                                [float(ref_enc[1]), float(ref_enc[2])], rtol=ATOL)
     back = vae_flax_variables(model.state_dict())
     jax.tree.map(np.testing.assert_array_equal, back, variables)
+
+
+def test_fresh_vq_codebook_draws_from_the_reference_distribution():
+    """A fresh codebook's embeddings and EMA sums come from U(+-1/K), as the
+    JAX package's and the original's do; its cluster sizes are zero.
+    Without a generator everything is zero, ready to be loaded."""
+    arch = VAEArch(channels=(8, 16), z_dim=3, bottleneck="vq", codebook_size=1024,
+                   codebook_beta=0.25, codebook_gamma=0.99, num_groups=4, init_resolution=16)
+    cb = build_vae(arch, torch.float32, "cpu", torch.Generator().manual_seed(0)).codebook
+    for t in (cb.embeddings.weight.detach(), cb.ema_w):
+        assert t.shape == (1024, 3) and t.dtype == torch.float32
+        assert 0 < float(t.abs().max()) <= 1.0 / 1024
+    assert not torch.equal(cb.embeddings.weight, cb.ema_w)
+    assert not cb.ema_cluster_size.any()
+    empty = build_vae(arch, torch.float32, "cpu").codebook
+    assert not any(t.any() for t in (empty.embeddings.weight, empty.ema_w, empty.ema_cluster_size))

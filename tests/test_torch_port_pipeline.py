@@ -97,6 +97,31 @@ def test_port_bundle_reads_back_in_jax(bundle, tmp_path):
                  jax.tree.map(np.asarray, jpipe.vae_variables))
 
 
+def _assert_trees_equal(a, b):
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b)
+        for k in a:
+            _assert_trees_equal(a[k], b[k])
+    else:
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_bf16_pipeline_writes_back_the_fp32_weights_it_read(bundle, tmp_path):
+    """A bundle read at the default bf16 and written back is unchanged,
+    leaf by leaf and bit for bit, as in the JAX package."""
+    from image_diffusion_torch.core import checkpoint as ckpt
+
+    _, path = bundle
+    pipe = DiffusionPipeline.from_checkpoint(path, device="cpu")
+    assert pipe.dtype == torch.bfloat16 and pipe.unet.in_conv.weight.dtype == torch.bfloat16
+    out = str(tmp_path / "bf16.ckpt")
+    pipe.to_checkpoint(out)
+    (trees, meta), (ref_trees, ref_meta) = ckpt.load_checkpoint(out), ckpt.load_checkpoint(path)
+    assert meta == ref_meta
+    _assert_trees_equal(trees, ref_trees)
+
+
 def test_sample_grid_layout_and_seed():
     """`sample` gives classes x scales rows, scale-major, and is a pure
     function of its seed."""
