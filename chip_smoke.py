@@ -22,8 +22,9 @@ Phases, one status line each; any failure exits non-zero:
      is what training runs, with the same times (library: SDPA's backward
      through autograd);
   3c. the flash kernel against its plain version at the VAE's attention
-     site (one head, N 1024, D 384) at batches 27 (the grid's decode), 48
-     (training) and 64 (prepare_dataset's batch), with the same times (library: SDPA, its backend named),
+     site (one head, N 1024, D 384) at batches 27 (the grid's decode), 24
+     (training's micro-batch at grad_accum 2), 48 (training) and 64
+     (prepare_dataset's batch), with the same times (library: SDPA, its backend named),
      the gradient through `FlashAttention` against autograd of the plain
      version, and the device time of that gradient (the einsum path's
      autograd, which has no kernel);
@@ -61,7 +62,17 @@ Phases, one status line each; any failure exits non-zero:
      against the checkpoints' fp32 trees), and `sample_grid`'s defaults
      (ddpm-1000, 27 images) and `--sampler dpm`: img/s as the CLI logs
      it, launches, and the images against `pipe.sample` with the same
-     arguments; the figure when matplotlib is installed.
+     arguments; the figure when matplotlib is installed;
+  9. stage-1 VQ training on the card (`configs/vae-vq-32x32.yaml`, EMA
+     codebook 1024x3): (a) full-width gradients at batch 2 against the
+     CPU, with the share of tokens whose code differs between them; (b)
+     the codebook lookup on the card's fp32 encoder output for batch 48
+     against float64 distances; (c) one EMA update at batch 48 against its
+     float64 statement, and the codebook's device time; (d) 25 steps
+     through `train_vae` as in phase 7, the perplexity at each flush and
+     on the dev set, a resume that restores the codebook, a profile; (e)
+     one step at grad_accum 2 against grad_accum 1 from one state and
+     batch: gradient, codebook, peak memory, ms/step and flash launches.
 Then a JSON line of kernel records, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
@@ -88,6 +99,7 @@ CONFIG = "configs/diff-kl-lin-32x32.yaml"
 VAE_CONFIG = "configs/vae-kl-32x32.yaml"
 VAE_TRAIN_STEPS = 25      # stage-1 trainer steps in phase 7, log_interval 5
 VAE_DISC_START = 10       # phase 7's disc_start: steps without and with the discriminator
+VQ_CONFIG = "configs/vae-vq-32x32.yaml"  # phase 9, the same overrides as phase 7
 # (N tokens, C channels, heads) of the UNet's 14 self-attention sites, two each
 SITES = [(1024, 256, 8), (256, 384, 8), (64, 512, 8), (16, 512, 8),
          (64, 384, 8), (256, 256, 8), (1024, 128, 8)]
@@ -121,6 +133,11 @@ SITE_GRAD_REL_L2 = 2.5e-1
 # fake and real terms apart.  At init those terms nearly cancel (their sum's
 # norm is ~15% of theirs), so the sum's relative error is several times its
 # terms' bf16 rounding; it is printed, not held
+# phase 9: the EMA codebook update and the state after a step, card vs float64
+# or accum 2 vs 1: max|diff| / max|reference| per tensor.  The cluster sizes
+# and ema_w are fp32 sums over up to 49,152 tokens a code, which index_add_
+# on the card adds in no fixed order
+EMA_REL = 1e-4
 # phase 8: a few rows of prepare_dataset's latents (bf16 on the card, stored
 # as fp16) against the same rows encoded on the CPU at fp32: relative L2,
 # of the same kind as UNET_REL_L2 through the encoder's ~40 layers
@@ -346,7 +363,7 @@ def phase_bwd_kernels(torch, F, attn, clock_hz):
 def phase_flash_kernel(torch, F, attn, clock_hz):
     """Phase 3c: the flash kernel against its plain version at the VAE's
     attention site (one head, N = 32*32, D = 384) at the grid's decode batch,
-    the training batch and prepare_dataset's batch, with times, and the
+    the training batch and its half and prepare_dataset's batch, with times, and the
     gradient through
     `FlashAttention` against autograd of the plain version."""
     from torch.nn.attention import SDPBackend
@@ -354,7 +371,7 @@ def phase_flash_kernel(torch, F, attn, clock_hz):
     N, D = 1024, 384
     scale = 1.0 / D ** 0.5
     batches = []
-    for B in (B_GRID // 2, B_TRAIN, B_ENCODE):
+    for B in (B_GRID // 2, B_TRAIN // 2, B_TRAIN, B_ENCODE):
         g = torch.Generator(device="cuda").manual_seed(3000 + B)
         q, k, v = (torch.randn(B, 1, N, D, generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
@@ -582,12 +599,44 @@ def phase_train(torch, np, attn, unet_state):
                 bwd_device_ms=bwd_ms, grad_rel_l2=whole, qkv_grad_rel_l2=qkv_err)
 
 
-def _stage1_grads(torch, cfg, dev, states, lpips, x_u8, draws):
+class _Lookup:
+    """Within `with`, the VQ codebook's nearest-code lookup records the codes
+    and fp32 tokens of its calls on the host (`taken`), and returns the
+    next of `codes` instead of its own when they are given (each call takes
+    as many as it has tokens)."""
+
+    def __init__(self, codes=None):
+        self.codes, self.taken, self.used = codes, [], 0
+
+    def __enter__(self):
+        import image_diffusion_torch.models.vae as vae_module
+
+        self.module, self.nearest = vae_module, vae_module.nearest_code
+
+        def lookup(flat, emb):
+            if self.codes is None:
+                idx = self.nearest(flat, emb)
+            else:
+                idx = self.codes[self.used:self.used + len(flat)].to(flat.device)
+                self.used += len(flat)
+            self.taken.append((idx.cpu(), flat.detach().cpu()))
+            return idx
+
+        vae_module.nearest_code = lookup
+        return self
+
+    def __exit__(self, *exc):
+        self.module.nearest_code = self.nearest
+
+
+def _stage1_grads(torch, cfg, dev, states, lpips, x_u8, draws, codes=None):
     """Gradients of one stage-1 step's two objectives at `dev` (bf16 compute
     on fp32 parameters): the VAE's (percept + recon + prior + g_loss through
-    the discriminator) and the discriminator's d_loss, the latter as its
-    fake and its real term's, by parameter name; and the flash launches the
-    forward made."""
+    the discriminator; also its autoencoder and g_loss terms apart, under
+    vae_ae. and vae_g.) and the discriminator's d_loss, the latter as its
+    fake and its real term's, by parameter name; the flash launches the
+    forward made; and for VQ the (codes, fp32 tokens) of its lookup on the
+    host, which takes `codes` when they are given."""
     from image_diffusion_torch.models import build_discriminator, build_vae
     from image_diffusion_torch.ops import attention as attn
     from image_diffusion_torch.training.losses import D_LOSSES, G_LOSSES, recon_loss
@@ -601,7 +650,8 @@ def _stage1_grads(torch, cfg, dev, states, lpips, x_u8, draws):
     percept = lpips.astype(tc.compute_dtype).to(dev)
     x = normalize_batch(x_u8.to(dev), draws[0].to(dev))
     before = attn.flash_attention.launches
-    x_hat, prior, _ = vae(x, sample=True, noise=draws[1].to(dev))
+    with _Lookup(codes) as lookup:  # KL: the default sample=True, VQ: noise unused
+        x_hat, prior, _ = vae(x, noise=draws[1].to(dev))
     launches = attn.flash_attention.launches - before
     x_hat = torch.clamp(x_hat.float(), -1.0, 1.0)
     out_fake, out_real = disc(x_hat.detach()).float(), disc(x).float()
@@ -612,22 +662,60 @@ def _stage1_grads(torch, cfg, dev, states, lpips, x_u8, draws):
                          ("real", D_LOSSES[tc.gan_loss](out_fake.detach(), out_real))):
         grads.update((f"disc_{half}.{n}", g) for n, g in
                      zip(names, torch.autograd.grad(d_loss, params, retain_graph=True)))
-    loss = (percept(x, x_hat) * tc.percept_weight + recon_loss(x, x_hat) * tc.recon_weight
-            + prior * tc.prior_weight + G_LOSSES[tc.gan_loss](disc(x_hat).float()) * tc.disc_weight)
+    # the VAE's objective as its autoencoder terms and its g_loss term apart
+    ae_loss = (percept(x, x_hat) * tc.percept_weight + recon_loss(x, x_hat) * tc.recon_weight
+               + prior * tc.prior_weight)
+    g_loss = G_LOSSES[tc.gan_loss](disc(x_hat).float()) * tc.disc_weight
     names, params = zip(*vae.named_parameters())
-    grads.update(("vae." + n, g) for n, g in zip(names, torch.autograd.grad(loss, params)))
-    return {n: g.float().cpu() for n, g in grads.items()}, launches
+    ae = torch.autograd.grad(ae_loss, params, retain_graph=True)
+    for n, a, b in zip(names, ae, torch.autograd.grad(g_loss, params)):
+        grads["vae." + n], grads["vae_ae." + n], grads["vae_g." + n] = a + b, a, b
+    return ({n: g.float().cpu() for n, g in grads.items()}, launches,
+            lookup.taken[0] if lookup.taken else None)
+
+
+def _stage1_grad_errors(torch, card, cpu):
+    """Card vs CPU gradients of `_stage1_grads`, relative L2: {vae, disc_fake,
+    disc_real, qkv} (held to GRAD_REL_L2), per site's q/k/v (held to
+    SITE_GRAD_REL_L2), and, printed, not held, d_loss's whole gradient and
+    the VAE gradient's autoencoder and g_loss terms."""
+
+    def rel(names):
+        a = torch.cat([card[n].flatten() for n in names])
+        b = torch.cat([cpu[n].flatten() for n in names])
+        return float((a - b).norm() / b.norm())
+
+    vae_names = [n for n in cpu if n.startswith("vae.")]
+    fake_names = [n for n in cpu if n.startswith("disc_fake.")]
+    real_names = [n for n in cpu if n.startswith("disc_real.")]
+    d_loss_err = float(torch.cat([(card[f] + card[r] - cpu[f] - cpu[r]).flatten()
+                                  for f, r in zip(fake_names, real_names)]).norm()
+                       / torch.cat([(cpu[f] + cpu[r]).flatten()
+                                    for f, r in zip(fake_names, real_names)]).norm())
+    qkv = [n for n in vae_names
+           if n.rsplit(".", 2)[-2] in ("to_q", "to_k", "to_v") and n.endswith("weight")]
+    sites = sorted({n.rsplit(".", 2)[0] for n in qkv})
+    per_site = {s: rel([n for n in qkv if n.startswith(s + ".")]) for s in sites}
+    errs = dict(vae=rel(vae_names), disc_fake=rel(fake_names), disc_real=rel(real_names),
+                qkv=rel(qkv))
+    terms = {t: rel([n.replace("vae.", f"vae_{t}.", 1) for n in vae_names]) for t in ("ae", "g")}
+    held = (len(sites) == 2 and max(errs.values()) <= GRAD_REL_L2
+            and max(per_site.values()) <= SITE_GRAD_REL_L2)
+    text = (f"VAE parameters {errs['vae']:.3e}, discriminator's fake and real terms "
+            f"{errs['disc_fake']:.3e} and {errs['disc_real']:.3e} (tolerance {GRAD_REL_L2}; their "
+            f"sum, not held, {d_loss_err:.3e}), to_q/to_k/to_v weights of {len(sites)} sites "
+            f"{errs['qkv']:.3e} (tolerance {GRAD_REL_L2}), worst site "
+            f"{max(per_site.values()):.3e} (tolerance {SITE_GRAD_REL_L2}); the VAE gradient's "
+            f"autoencoder and g_loss terms, not held, {terms['ae']:.3e} and {terms['g']:.3e}")
+    return errs, held, text
 
 
 def phase_vae_train(torch, np, attn, tmp):
     """Phase 7: stage-1 VAE-GAN training on the card, its files in `tmp`
-    (phase 8 reads its images and checkpoint)."""
-    import csv
-
+    (phases 8 and 9 read its images, LPIPS file and checkpoint)."""
     from image_diffusion_torch.core.config import VAEConfig
     from image_diffusion_torch.models import build_discriminator, build_vae
     from image_diffusion_torch.models.lpips import LPIPS
-    from image_diffusion_torch.scripts.train_vae import main as train_main
     from image_diffusion_torch.training.vae_trainer import draw
 
     cfg = VAEConfig.from_yaml(VAE_CONFIG)
@@ -644,58 +732,53 @@ def phase_vae_train(torch, np, attn, tmp):
     grads, secs, launches = [], [], []
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        got, n = _stage1_grads(torch, cfg, dev, states, lpips, x_u8, draws)
+        got, n, _ = _stage1_grads(torch, cfg, dev, states, lpips, x_u8, draws)
         grads.append(got)
         launches.append(n)
         secs.append(time.perf_counter() - t0)
-    card, cpu = grads
-
-    def rel(names):
-        a = torch.cat([card[n].flatten() for n in names])
-        b = torch.cat([cpu[n].flatten() for n in names])
-        return float((a - b).norm() / b.norm())
-
-    vae_names = [n for n in cpu if n.startswith("vae.")]
-    fake_names = [n for n in cpu if n.startswith("disc_fake.")]
-    real_names = [n for n in cpu if n.startswith("disc_real.")]
-    for side in (card, cpu):  # d_loss's gradient: the sum of its terms'
-        side.update((f.replace("disc_fake.", "disc."), side[f] + side[r])
-                    for f, r in zip(fake_names, real_names))
-    d_loss_err = rel([f.replace("disc_fake.", "disc.") for f in fake_names])
-    qkv = [n for n in vae_names
-           if n.rsplit(".", 2)[-2] in ("to_q", "to_k", "to_v") and n.endswith("weight")]
-    site_names = sorted({n.rsplit(".", 2)[0] for n in qkv})
-    per_site = {s: rel([n for n in qkv if n.startswith(s + ".")]) for s in site_names}
-    errs = dict(vae=rel(vae_names), disc_fake=rel(fake_names), disc_real=rel(real_names),
-                qkv=rel(qkv))
+    errs, held, text = _stage1_grad_errors(torch, *grads)
     log(f"phase 7 gradients: full-width VAE + discriminator + LPIPS, batch 2, card vs CPU rel "
-        f"L2: VAE parameters {errs['vae']:.3e}, discriminator's fake and real terms "
-        f"{errs['disc_fake']:.3e} and {errs['disc_real']:.3e} (tolerance {GRAD_REL_L2}; their "
-        f"sum, not held, {d_loss_err:.3e}), to_q/to_k/to_v weights of {len(site_names)} sites "
-        f"{errs['qkv']:.3e} "
-        f"(tolerance {GRAD_REL_L2}), worst site {max(per_site.values()):.3e} (tolerance "
-        f"{SITE_GRAD_REL_L2}); flash launches on the card {launches[0]}; card {secs[0]:.1f} s, "
+        f"L2: {text}; flash launches on the card {launches[0]}; card {secs[0]:.1f} s, "
         f"CPU {secs[1]:.1f} s")
-    if len(site_names) != 2 or launches[0] != 2 or not (
-            max(errs.values()) <= GRAD_REL_L2 and max(per_site.values()) <= SITE_GRAD_REL_L2):
+    if launches[0] != 2 or not held:
         raise AssertionError("full-width stage-1 gradients on the card disagree with the CPU")
-    del grads, card, cpu
+    del grads
 
     # 2. the trainer through its entry point, 25 steps of the shipped config
     rng = np.random.default_rng(0)
     n_train, n_dev = VAE_TRAIN_STEPS * B_TRAIN, 2 * B_TRAIN + 4  # the dev tail: 4 of 48
     np.save(os.path.join(tmp, "train.npy"), rng.integers(0, 256, (n_train, 128, 128, 3), dtype=np.uint8))
     np.save(os.path.join(tmp, "dev.npy"), rng.integers(0, 256, (n_dev, 128, 128, 3), dtype=np.uint8))
-    with open(VAE_CONFIG) as f:
+    run = _stage1_cli_run(torch, np, attn, tmp, "phase 7", VAE_CONFIG, "smoke", lpips_path)
+    del run["trainer"], run["x"]
+    return dict(run, grad_rel_l2=errs, images=os.path.join(tmp, "train.npy"))
+
+
+def _stage1_cli_run(torch, np, attn, tmp, phase, config_path, run, lpips_path):
+    """25 steps of the stage-1 config `config_path` through
+    `image_diffusion_torch.scripts.train_vae.main` on phase 7's images in
+    `tmp` (paths, epochs: 1, log_interval: 5 and disc_start: 10
+    overridden; no plot_set file), with its flushes, flash launches and
+    checks; a resume from its checkpoint; a profile of 3 train steps with
+    the discriminator active."""
+    import csv
+
+    from image_diffusion_torch.core.config import VAEConfig
+    from image_diffusion_torch.scripts.train_vae import main as train_main
+
+    cfg = VAEConfig.from_yaml(config_path)
+    is_vq = cfg.arch.bottleneck == "vq"
+    n_dev = len(np.load(os.path.join(tmp, "dev.npy"), mmap_mode="r"))
+    with open(config_path) as f:
         text = _override(f.read(), {
             "train_set": os.path.join(tmp, "train.npy"), "dev_set": os.path.join(tmp, "dev.npy"),
             "plot_set": os.path.join(tmp, "plot.npy"),
             "checkpoints_dir": os.path.join(tmp, "ckpt"), "logs_dir": os.path.join(tmp, "logs"),
             "epochs": 1, "log_interval": 5, "disc_start": VAE_DISC_START})
-    config = os.path.join(tmp, "config.yaml")
+    config = os.path.join(tmp, f"{run}.yaml")
     with open(config, "w") as f:
         f.write(text)
-    args = ["--config", config, "--experiment-name", "smoke", "--no-mlflow",
+    args = ["--config", config, "--experiment-name", run, "--no-mlflow",
             "--lpips-weights", lpips_path]
     attn.flash_attention.launches = 0
     torch.cuda.synchronize()
@@ -705,7 +788,7 @@ def phase_vae_train(torch, np, attn, tmp):
     run_s = time.perf_counter() - t0
     run_launches = attn.flash_attention.launches
     dev_batches = -(-n_dev // B_TRAIN)
-    with open(os.path.join(tmp, "logs", "smoke_metrics.csv")) as f:
+    with open(os.path.join(tmp, "logs", f"{run}_metrics.csv")) as f:
         rows = list(csv.DictReader(f))
     flushes, dev = {}, {}
     for r in rows:
@@ -724,46 +807,52 @@ def phase_vae_train(torch, np, attn, tmp):
         gan = (f"d_loss {f['gan/d_loss']:.5f}, g_loss {f['gan/g_loss']:.5f}, fake_acc "
                f"{f['gan/fake_acc']:.3f}, real_acc {f['gan/real_acc']:.3f}"
                if "gan/d_loss" in f else "discriminator inactive")
-        log(f"phase 7 train flush at step {s + 1}: loss {loss:.5f} (recon {f['vae/recon_loss']:.5f}, "
-            f"percept {f['vae/percept_loss']:.5f}, prior {f['vae/prior_loss']:.3f}), "
+        perplexity = f", perplexity {f['vae/perplexity']:.3f}" if "vae/perplexity" in f else ""
+        log(f"{phase} train flush at step {s + 1}: loss {loss:.5f} (recon {f['vae/recon_loss']:.5f}, "
+            f"percept {f['vae/percept_loss']:.5f}, prior {f['vae/prior_loss']:.3f}{perplexity}), "
             f"vae grad {f['vae/vae_grad']:.4f}; {gan}; {f['util/imgs_per_sec']:.1f} imgs/s")
     st = trainer.state
-    ckpt = os.path.join(tmp, "ckpt", "smoke", "vae-epoch-00.ckpt")
+    ckpt = os.path.join(tmp, "ckpt", run, "vae-epoch-00.ckpt")
     finite = all(np.isfinite(list(f.values())).all() for f in flushes.values())
     gan_flushes = [s for s in steps if "gan/d_loss" in flushes[s]]
     fp32 = all(p.dtype == torch.float32 for p in st.vae_opt.params + st.disc_opt.params)
-    log(f"phase 7 trainer: {st.step} steps ({st.disc_opt.count} with the discriminator) in "
+    dev_names = {"dev/recon_loss", "dev/percept_loss"} | ({"dev/perplexity"} if is_vq else set())
+    log(f"{phase} trainer: {st.step} steps ({st.disc_opt.count} with the discriminator) in "
         f"{run_s:.1f} s through image_diffusion_torch.scripts.train_vae (set-up, dev "
         f"evaluation and checkpoint included); {step_ms:.2f} ms/step after the first 5 "
         f"({B_TRAIN / step_ms * 1e3:.1f} imgs/s); flash launches {run_launches} = "
-        f"{VAE_TRAIN_STEPS} steps x 2 + {dev_batches} dev batches x 2; dev recon "
-        f"{dev.get('dev/recon_loss', float('nan')):.5f}, percept "
-        f"{dev.get('dev/percept_loss', float('nan')):.5f}; fp32 parameters {fp32}; "
-        f"checkpoint written {os.path.exists(ckpt)}")
+        f"{VAE_TRAIN_STEPS} steps x 2 + {dev_batches} dev batches x 2; "
+        + ", ".join(f"{k} {dev.get(k, float('nan')):.5f}" for k in sorted(dev_names))
+        + f"; fp32 parameters {fp32}; checkpoint written {os.path.exists(ckpt)}")
     if not (st.step == VAE_TRAIN_STEPS and st.disc_opt.count == VAE_TRAIN_STEPS - VAE_DISC_START
             and len(steps) == VAE_TRAIN_STEPS // 5 and finite and fp32
             and gan_flushes == [s for s in steps if s >= VAE_DISC_START]
-            and set(dev) == {"dev/recon_loss", "dev/percept_loss"}
+            and all(("vae/perplexity" in f) == is_vq for f in flushes.values())
+            and set(dev) == dev_names
             and np.isfinite(list(dev.values())).all() and os.path.exists(ckpt)):
-        raise AssertionError("stage-1 trainer: wrong step counts, non-finite metrics, the "
-                             "discriminator active at the wrong steps, or no checkpoint")
+        raise AssertionError(f"{phase} stage-1 trainer: wrong step counts or metrics, non-finite "
+                             f"metrics, the discriminator active at the wrong steps, or no "
+                             f"checkpoint")
     if run_launches != 2 * (VAE_TRAIN_STEPS + dev_batches):
-        raise AssertionError(f"stage-1 trainer: {run_launches} flash launches, expected 2 per "
-                             f"step and per dev batch")
+        raise AssertionError(f"{phase} stage-1 trainer: {run_launches} flash launches, expected 2 "
+                             f"per step and per dev batch")
 
-    # 3. resume from the checkpoint: step, parameters, BN statistics and moments equal
+    # 3. resume from the checkpoint: step, parameters, BN statistics, moments
+    # and the VQ codebook equal
     resumed = train_main(args + ["--checkpoint", ckpt]).state
 
     def tensors(s):
         return (s.vae_opt.params + s.disc_opt.params + sum(s.vae_opt.moments(), [])
-                + sum(s.disc_opt.moments(), []) + list(s.disc.buffers()))
+                + sum(s.disc_opt.moments(), []) + list(s.disc.buffers()) + list(s.vae.buffers()))
 
     same = ((resumed.step, resumed.disc_opt.count) == (st.step, st.disc_opt.count)
             and all(torch.equal(a, b) for a, b in zip(tensors(st), tensors(resumed))))
-    log(f"phase 7 resume: step {resumed.step}, discriminator updates {resumed.disc_opt.count}; "
-        f"parameters, BatchNorm statistics and both Adams' moments equal: {same}")
+    log(f"{phase} resume: step {resumed.step}, discriminator updates {resumed.disc_opt.count}; "
+        f"parameters, BatchNorm statistics, both Adams' moments"
+        + (" and the codebook" if is_vq else "") + f" equal: {same}")
     if not same:
-        raise AssertionError("stage-1 resume: step, parameters, statistics or moments differ")
+        raise AssertionError(f"{phase} stage-1 resume: step, parameters, statistics, moments or "
+                             f"codebook differ")
     del resumed
 
     # 4. profile 3 train steps with the discriminator active
@@ -774,12 +863,199 @@ def phase_vae_train(torch, np, attn, tmp):
     busy = sum(prof.values())
     flash_ms = sum(v for k, v in prof.items() if "flash_attention_kernel" in k)
     top = sorted(prof.items(), key=lambda kv: -kv[1])[:6]
-    log(f"phase 7 profile: device busy {busy:.3f} ms of a {wall:.3f} ms train step "
+    log(f"{phase} profile: device busy {busy:.3f} ms of a {wall:.3f} ms train step "
         f"(idle share {idle_share(busy, wall)}); {kernels:.0f} kernels per step; flash_attention "
         f"{flash_ms:.3f} ms; top: " + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top))
     return dict(step_ms=step_ms, busy_ms=busy, wall_ms=wall, launches=run_launches,
-                flash_device_ms=flash_ms, grad_rel_l2=errs, ckpt=ckpt,
-                images=os.path.join(tmp, "train.npy"))
+                flash_device_ms=flash_ms, ckpt=ckpt, trainer=trainer, x=x_dev)
+
+
+def phase_vq_train(torch, np, attn, tmp):
+    """Phase 9: stage-1 VQ VAE-GAN training (EMA codebook) on the card, on
+    phase 7's images, dev set and LPIPS file in `tmp`."""
+    import copy
+    from dataclasses import replace
+
+    from image_diffusion_torch.core.config import VAEConfig
+    from image_diffusion_torch.models import build_discriminator, build_vae
+    from image_diffusion_torch.models.lpips import LPIPS
+    from image_diffusion_torch.training.vae_trainer import draw, make_vae_train_step, normalize_batch
+
+    cfg = VAEConfig.from_yaml(VQ_CONFIG)
+    gamma, K = cfg.arch.codebook_gamma, cfg.arch.codebook_size
+    lpips_path = os.path.join(tmp, "lpips.pth")
+    lpips = LPIPS.from_torch_file(lpips_path)
+
+    # (a) full-width gradients at batch 2, card (flash kernel) vs CPU (plain
+    # version): at the fresh codebook, printed, and held at a codebook spread
+    # over the batch's own fp32 encoder tokens.  A fresh codebook is
+    # U(+-1/1024): the tokens fall on a handful of codes, both images decode
+    # to nearly the same picture, and the bf16 rounding of the terms through
+    # the discriminator and LPIPS reaches the bar; the CPU decoding the
+    # card's codes leaves the errors as they are, so code flips are not why
+    g = torch.Generator().manual_seed(9)
+    states = (build_vae(cfg.arch, torch.float32, "cpu", g).state_dict(),
+              build_discriminator(cfg.train.disc_channels, torch.float32, "cpu", g).state_dict())
+    x_u8 = torch.randint(0, 256, (2, 128, 128, 3), generator=g, dtype=torch.uint8)
+    draws = draw(g, 2, (32, 32, cfg.arch.z_dim))
+
+    def compare(label, states, hold):
+        t0 = time.perf_counter()
+        card, launches, (codes_card, _) = _stage1_grads(torch, cfg, "cuda", states, lpips, x_u8,
+                                                        draws)
+        t1 = time.perf_counter()
+        cpu, _, (codes_cpu, tokens) = _stage1_grads(torch, cfg, "cpu", states, lpips, x_u8, draws)
+        secs = (t1 - t0, time.perf_counter() - t1)
+        flipped = codes_card != codes_cpu
+        emb = states[0]["codebook.embeddings.weight"].double()
+        gaps = (tokens[flipped].double()[:, None, :] - emb[None]).square().sum(-1)
+        gaps = gaps.topk(2, dim=1, largest=False).values.diff(dim=1).flatten()
+        errs, held, text = _stage1_grad_errors(torch, card, cpu)
+        log(f"phase 9 gradients, {label}: full-width VQ VAE + discriminator + LPIPS, batch 2, card "
+            f"vs CPU rel L2: {text}; " + ("held" if hold else "not held") + f"; codes differing "
+            f"between card and CPU {int(flipped.sum())} of {flipped.numel()} tokens "
+            f"({float(flipped.float().mean()):.4f})"
+            + (f", their float64 gap between the two nearest codes {float(gaps.min()):.3e} to "
+               f"{float(gaps.max()):.3e}" if flipped.any() else "")
+            + f"; {len(codes_card.unique())} codes used; flash launches on the card {launches}; "
+            f"card {secs[0]:.1f} s, CPU {secs[1]:.1f} s")
+        if hold and not held and flipped.any():  # the CPU again, decoding the card's codes
+            cpu, _, _ = _stage1_grads(torch, cfg, "cpu", states, lpips, x_u8, draws,
+                                      codes=codes_card)
+            errs, held, text = _stage1_grad_errors(torch, card, cpu)
+            log(f"phase 9 gradients, {label}, the CPU on the card's codes: {text}")
+        if launches != 2 or (hold and not held):
+            raise AssertionError(f"full-width VQ stage-1 gradients on the card disagree with the "
+                                 f"CPU ({label})")
+        return errs
+
+    compare("fresh codebook", states, hold=False)
+    vae_cpu = build_vae(cfg.arch, torch.float32, "cpu")
+    vae_cpu.load_state_dict(states[0])
+    with torch.no_grad(), _Lookup() as lookup:
+        vae_cpu(normalize_batch(x_u8, draws.flip))
+    tokens = lookup.taken[0][1]
+    pick = torch.randperm(len(tokens), generator=torch.Generator().manual_seed(0))[:K]
+    spread = {**states[0], "codebook.embeddings.weight": tokens[pick].clone()}
+    errs = compare("codebook spread over the tokens", (spread, states[1]), hold=True)
+    del vae_cpu
+
+    # (d) 25 steps of the VQ config through the CLI, resume, profile
+    run = _stage1_cli_run(torch, np, attn, tmp, "phase 9", VQ_CONFIG, "vq", lpips_path)
+    trainer, x = run.pop("trainer"), run.pop("x")
+    vae = trainer.state.vae
+
+    # (b) the lookup on the card's fp32 encoder output for batch 48, against float64
+    with torch.no_grad(), _Lookup() as lookup:
+        vae(normalize_batch(x))
+    z = lookup.taken[0][1].cuda().reshape(B_TRAIN, 32, 32, cfg.arch.z_dim)
+    cb = copy.deepcopy(vae.codebook)
+    state0 = [b.double().cpu() for b in (cb.ema_cluster_size, cb.ema_w, cb.embeddings.weight)]
+    with torch.no_grad(), _Lookup() as lookup:
+        cb(z, train=True)  # (c)'s update, on the same codes
+    codes, flat = lookup.taken[0]
+    tokens, e = flat.double(), state0[2]
+    dist = (tokens.square().sum(1, keepdim=True) - 2.0 * tokens @ e.T + e.square().sum(1)[None])
+    top = dist.topk(2, dim=1, largest=False)
+    best, gap = top.indices[:, 0], top.values[:, 1] - top.values[:, 0]
+    znorm, enorm = tokens.norm(dim=1), e.norm(dim=1)
+    # fp32 rounding of the two distances, each within a few ulps of (|z| + |e|)^2
+    rounding = 2.0 ** -21 * ((znorm + enorm[top.indices[:, 0]]) ** 2
+                             + (znorm + enorm[top.indices[:, 1]]) ** 2)
+    differ = codes != best
+    log(f"phase 9 lookup: batch {B_TRAIN}, {codes.numel()} tokens of the trained VAE, codebook "
+        f"{K}x{cfg.arch.z_dim} fp32 on the card against float64 distances on the host: "
+        f"{int(differ.sum())} codes differ, all with a float64 gap below fp32 rounding: "
+        f"{bool((gap[differ] < rounding[differ]).all())} ({int((gap < rounding).sum())} tokens "
+        f"have such a gap); {len(best.unique())} codes used")
+    if (differ & (gap >= rounding)).any():
+        raise AssertionError("the card's nearest codes differ from float64's beyond fp32 rounding")
+
+    # (c) one EMA update on the card at batch 48 against its float64 statement
+    counts = torch.bincount(codes, minlength=K).double()
+    dw = torch.zeros(K, cfg.arch.z_dim, dtype=torch.float64).index_add_(0, codes, tokens)
+    cs = state0[0] * gamma + (1.0 - gamma) * counts
+    n = cs.sum()
+    smoothed = (cs + 1e-5) / (n + K * 1e-5) * n
+    w = state0[1] * gamma + (1.0 - gamma) * dw
+    ema_err = {name: float((got.double().cpu() - ref).abs().max() / ref.abs().max())
+               for name, got, ref in (("cluster sizes", cb.ema_cluster_size, smoothed),
+                                      ("ema_w", cb.ema_w, w),
+                                      ("embeddings", cb.embeddings.weight, w / smoothed[:, None]))}
+    lookup_ms = device_ms(torch, lambda: cb(z))
+    codebook_ms = device_ms(torch, lambda: cb(z, train=True))
+    log(f"phase 9 EMA update: batch {B_TRAIN} on the card vs float64 on the host, max|card - "
+        f"fp64| / max|fp64|: " + ", ".join(f"{k} {v:.3e}" for k, v in ema_err.items())
+        + f" (tolerance {EMA_REL}); the codebook's device time at batch {B_TRAIN}: lookup "
+        f"{lookup_ms:.3f} ms, lookup + update {codebook_ms:.3f} ms, {codebook_ms / run['busy_ms']:.4f} "
+        f"of the profiled step's {run['busy_ms']:.3f} ms busy")
+    if not max(ema_err.values()) <= EMA_REL:
+        raise AssertionError("the EMA update on the card disagrees with its float64 statement")
+    del cb, z
+
+    # (e) grad accumulation at full width: one state, one batch, accum 1 and 2.
+    # The bf16 encoder rounds differently at micro-batch 24 than at 48, which
+    # moves near-tie tokens to another code; the codebook is held on accum
+    # 1's codes (a second accum 2 step that takes them), the flips printed
+    percept = lpips.astype(cfg.train.compute_dtype).to("cuda")
+    steps = {a: make_vae_train_step(replace(cfg, train=replace(cfg.train, grad_accum=a)), percept)
+             for a in (1, 2)}
+    draws = draw(torch.Generator(device="cuda").manual_seed(5), B_TRAIN, (32, 32, cfg.arch.z_dim))
+
+    def accum_step(a, codes=None):
+        st = copy.deepcopy(trainer.state)
+        torch.cuda.synchronize()
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+        attn.flash_attention.launches = 0
+        with _Lookup(codes) as lookup:
+            metrics = steps[a](st, x, draws, False)
+        torch.cuda.synchronize()
+        return st, dict(grad=torch.cat([p.grad.flatten() for p in st.vae_opt.params]).float().cpu(),
+                        buffers=[b.double().cpu() for b in st.vae.codebook.buffers()],
+                        codes=torch.cat([c for c, _ in lookup.taken]),
+                        vae_grad=float(metrics["vae/vae_grad"]), base_mb=base_mb,
+                        peak_mb=torch.cuda.max_memory_allocated() / 2**20,
+                        launches_inactive=attn.flash_attention.launches)
+
+    def rel_max(r2, r1):
+        return max(float((b2 - b1).abs().max() / b1.abs().max())
+                   for b1, b2 in zip(r1["buffers"], r2["buffers"]))
+
+    acc = {}
+    for a in (1, 2):
+        st, acc[a] = accum_step(a)
+        acc[a]["ms"] = cuda_ms(lambda: steps[a](st, x, draws, False), iters=5, warmup=1)
+        attn.flash_attention.launches = 0
+        steps[a](st, x, draws, True)
+        torch.cuda.synchronize()
+        acc[a]["launches_active"] = attn.flash_attention.launches
+        del st
+    grad_err = float((acc[2]["grad"] - acc[1]["grad"]).norm() / acc[1]["grad"].norm())
+    flips = int((acc[1]["codes"] != acc[2]["codes"]).sum())
+    cb_err_flips = rel_max(acc[2], acc[1])
+    same = accum_step(2, codes=acc[1]["codes"])[1]
+    cb_err = rel_max(same, acc[1])
+    log(f"phase 9 grad_accum: batch {B_TRAIN}, discriminator inactive, accum 2 vs 1: the clipped "
+        f"averaged VAE gradient rel L2 {grad_err:.3e} (tolerance {GRAD_REL_L2}), grad norms "
+        f"{acc[2]['vae_grad']:.4f} / {acc[1]['vae_grad']:.4f}; codebook after the step max|diff| / "
+        f"max {cb_err:.3e} on accum 1's codes (tolerance {EMA_REL}), {cb_err_flips:.3e} on its "
+        f"own, where {flips} of {acc[1]['codes'].numel()} tokens took another code; " + "; ".join(
+            f"accum {a}: {acc[a]['ms']:.2f} ms/step, peak memory {acc[a]['peak_mb']:.0f} MiB "
+            f"({acc[a]['peak_mb'] - acc[a]['base_mb']:.0f} MiB above the {acc[a]['base_mb']:.0f} "
+            f"MiB held), flash launches a step {acc[a]['launches_inactive']} with the "
+            f"discriminator inactive, {acc[a]['launches_active']} active" for a in (1, 2)))
+    if not (grad_err <= GRAD_REL_L2 and cb_err <= EMA_REL
+            and [acc[a]["launches_inactive"] for a in (1, 2)] == [2, 4]
+            and [acc[a]["launches_active"] for a in (1, 2)] == [2, 8]):
+        raise AssertionError("grad_accum 2 disagrees with grad_accum 1 on the card, or launched "
+                             "the flash kernel other than 2 a micro-batch and phase")
+    accum = {f"accum_{a}": {k: v for k, v in acc[a].items() if k not in ("grad", "buffers", "codes")}
+             for a in (1, 2)}
+    return dict(run, grad_rel_l2=errs, lookup_ms=lookup_ms, codebook_ms=codebook_ms,
+                ema_rel_err=ema_err, accum=accum, accum_grad_rel_l2=grad_err,
+                accum_codebook_rel_err=cb_err, accum_code_flips=flips,
+                accum_codebook_rel_err_own_codes=cb_err_flips)
 
 
 def phase_clis(torch, np, attn, vae_ckpt: str, images_path: str, tmp: str):
@@ -1123,6 +1399,10 @@ def main() -> int:
 
         # phase 8: the two stages joined through the CLIs
         clis = phase_clis(torch, np, attn, vae_train["ckpt"], vae_train["images"], tmp)
+        torch.cuda.empty_cache()
+
+        # phase 9: stage-1 VQ training on the card
+        vq = phase_vq_train(torch, np, attn, tmp)
 
     per_forward = {k: 2 * sum(s[k] for s in sites)
                    for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
@@ -1172,6 +1452,12 @@ def main() -> int:
         "launches": vae_train["launches"],
         "launches_by_path": {"phase 5 ddpm-1000 grid": grid_flash, "phase 5 dpm-20 grid": dpm_flash,
                              "phase 7 train_vae": vae_train["launches"],
+                             "phase 9 train_vae (vq)": vq["launches"],
+                             "phase 9 vq step, grad_accum 1": vq["accum"]["accum_1"]["launches_inactive"],
+                             "phase 9 vq step, grad_accum 2, discriminator inactive":
+                                 vq["accum"]["accum_2"]["launches_inactive"],
+                             "phase 9 vq step, grad_accum 2, discriminator active":
+                                 vq["accum"]["accum_2"]["launches_active"],
                              "phase 8 prepare_dataset": clis["prep_flash"],
                              "phase 8 sample_grid ddpm": clis["grids"]["ddpm"]["launches"][1],
                              "phase 8 sample_grid dpm": clis["grids"]["dpm"]["launches"][1]},
@@ -1197,7 +1483,16 @@ def main() -> int:
         "sample_grid_ddpm_s": clis["grids"]["ddpm"]["seconds"],
         "sample_grid_dpm_s": clis["grids"]["dpm"]["seconds"],
         "phase8_pipe_sample_ddpm_s": clis["grids"]["ddpm"]["pipe_seconds"],
-        "phase8_pipe_sample_dpm_s": clis["grids"]["dpm"]["pipe_seconds"]}
+        "phase8_pipe_sample_dpm_s": clis["grids"]["dpm"]["pipe_seconds"],
+        "vq_train_step_ms": vq["step_ms"], "vq_train_step_device_busy_ms": vq["busy_ms"],
+        "vq_train_step_profiled_ms": vq["wall_ms"], "vq_train_flash_launches": vq["launches"],
+        "vq_train_flash_device_ms": vq["flash_device_ms"], "vq_train_grad_rel_l2": vq["grad_rel_l2"],
+        "vq_codebook_lookup_device_ms": vq["lookup_ms"],
+        "vq_codebook_lookup_update_device_ms": vq["codebook_ms"], "vq_ema_rel_err": vq["ema_rel_err"],
+        "vq_accum": vq["accum"], "vq_accum_grad_rel_l2": vq["accum_grad_rel_l2"],
+        "vq_accum_codebook_rel_err": vq["accum_codebook_rel_err"],
+        "vq_accum_code_flips": vq["accum_code_flips"],
+        "vq_accum_codebook_rel_err_own_codes": vq["accum_codebook_rel_err_own_codes"]}
     log(json.dumps(record))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -101,7 +101,9 @@ def _tensors(arrays: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
 
 
 def _numpy(state: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
-    return {k: v.detach().to("cpu", torch.float32).numpy() for k, v in state.items()}
+    """Host copies, never views: a trainer's asynchronous save serializes
+    them while the next step updates the tensors in place."""
+    return {k: v.detach().to("cpu", torch.float32, copy=True).numpy() for k, v in state.items()}
 
 
 def unet_state_dict(flax_params: Mapping) -> dict[str, torch.Tensor]:

@@ -2,7 +2,8 @@
 
 Stdlib logging to the console plus MLflow on a local sqlite file when it is
 installed (imported at first use); without it, or with `no_mlflow`, metrics
-go to `{logs_dir}/{run_name}_metrics.csv` as (step, name, value) rows.
+go to `{logs_dir}/{run_name}_metrics.csv` as (step, name, value) rows and
+figures to `{logs_dir}/{run_name}/`.
 Metric names (unet/loss, unet/grad, unet/lr, ...) match the JAX package's.
 """
 
@@ -58,6 +59,21 @@ class BasicLogger:
     def log_metrics(self, metrics: dict[str, float], step: int) -> None:
         for name, val in metrics.items():
             self.log_metric(name, val, step)
+
+    def log_figure(self, name: str, figure) -> None:
+        """Log a matplotlib figure as `name` (to MLflow, else to
+        {logs_dir}/{run_name}/{name}) and close it."""
+        import matplotlib.pyplot as plt
+
+        try:
+            if self._mlflow is not None:
+                self._mlflow.log_figure(figure, name)
+            else:
+                path = os.path.join(self.logs_dir, self.run_name, name)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                figure.savefig(path)
+        finally:
+            plt.close(figure)
 
     def log_params(self, **kwargs) -> None:
         if self._mlflow is not None:

@@ -11,10 +11,11 @@ config has attention there, so outputs agree).  The encoder's and the
 decoder's mid-block attention (one head, d = the widest channel count,
 384 in the shipped config) take the flash kernel in bf16 (`ops.site_route`).
 
-The VQ codebook is inference-only here: it holds the embeddings (and the
-EMA statistics, so a trained state loads strictly), finds nearest codes in
-fp32 and reports the commitment loss and perplexity; its EMA update, VQ
-training, is not ported yet.
+The VQ codebook holds its embeddings and EMA statistics as fp32 buffers
+(state, not parameters), finds nearest codes in fp32, reports the
+commitment loss and the code perplexity, and in training updates itself
+by the EMA of the batches' code statistics, or hands those statistics to
+the caller for grad accumulation.
 """
 
 from __future__ import annotations
@@ -92,12 +93,32 @@ def nearest_code(flat: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     return torch.argmin(distances, dim=-1)
 
 
-class Codebook(nn.Module):
-    """VQ codebook: nearest-code lookup over fp32 embeddings."""
+def codebook_ema_update(ema_cluster_size, ema_w, counts, dw, gamma: float, epsilon: float = 1e-5):
+    """One EMA codebook update from batch statistics -> (cluster sizes,
+    ema_w, embeddings): cluster sizes cs * gamma + (1 - gamma) * counts,
+    Laplace-smoothed to (cs + eps) / (n + K eps) * n; ema_w * gamma +
+    (1 - gamma) * dw; embeddings ema_w / smoothed sizes."""
+    new_cs = ema_cluster_size * gamma + (1.0 - gamma) * counts
+    n = torch.sum(new_cs)
+    smoothed = (new_cs + epsilon) / (n + new_cs.shape[0] * epsilon) * n
+    new_ema_w = ema_w * gamma + (1.0 - gamma) * dw
+    return smoothed, new_ema_w, new_ema_w / smoothed[:, None]
 
-    def __init__(self, size: int, dim: int):
+
+class Codebook(nn.Module):
+    """VQ codebook: nearest-code lookup over fp32 embeddings, updated by an
+    EMA of the batches' code statistics in training.
+
+    The embeddings and the EMA sums are buffers, not parameters: no
+    optimizer sees them (the JAX package's non-trainable `codebook`
+    collection).  They stay fp32 whatever the compute dtype, and the
+    embeddings keep the state-dict key `embeddings.weight`."""
+
+    def __init__(self, size: int, dim: int, gamma: float | None):
         super().__init__()
-        self.embeddings = nn.Embedding(size, dim)
+        self.gamma = gamma
+        self.embeddings = nn.Module()
+        self.embeddings.register_buffer("weight", torch.zeros(size, dim))
         self.register_buffer("ema_cluster_size", torch.zeros(size))
         self.register_buffer("ema_w", torch.zeros(size, dim))
 
@@ -105,7 +126,7 @@ class Codebook(nn.Module):
         """Embeddings and EMA sums from U(+-1/K), as the JAX package's and
         the original's codebook draw them (zero without a generator);
         cluster sizes zero."""
-        bound = 1.0 / self.embeddings.num_embeddings
+        bound = 1.0 / self.ema_w.shape[0]
         for t in (self.embeddings.weight, self.ema_w):
             t.copy_(torch.zeros(t.shape) if generator is None
                     else torch.empty(t.shape).uniform_(-bound, bound, generator=generator))
@@ -114,18 +135,63 @@ class Codebook(nn.Module):
     def quantize(self, z: torch.Tensor) -> torch.Tensor:
         """NHWC latents -> nearest codes, fp32, through the straight-through
         form flat + (quant - flat) the training path uses."""
-        return self.lookup(z)[0]
+        return self(z)[0]
 
-    def lookup(self, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """-> (quantize(z), mean squared distance to the codes (fp32), the
-        codes' usage perplexity exp(-sum p log(p + 1e-6)))."""
+    def indices(self, z: torch.Tensor) -> torch.Tensor:
+        """NHWC latents -> the nearest code of each position, (B, H, W)."""
+        with torch.no_grad():
+            return nearest_code(z.reshape(-1, z.shape[-1]).float(),
+                                self.embeddings.weight).reshape(z.shape[:-1])
+
+    def empty_stats(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Zero (counts (K,), dw (K, C)) for `forward`'s `ema_stats`."""
+        return torch.zeros_like(self.ema_cluster_size), torch.zeros_like(self.ema_w)
+
+    @torch.no_grad()
+    def ema_update(self, counts: torch.Tensor, dw: torch.Tensor) -> None:
+        """Apply one EMA update from (counts, dw), in place."""
+        cs, w, emb = codebook_ema_update(self.ema_cluster_size, self.ema_w, counts, dw,
+                                         self.gamma)
+        self.ema_cluster_size.copy_(cs)
+        self.ema_w.copy_(w)
+        self.embeddings.weight.copy_(emb)
+
+    def forward(self, z: torch.Tensor, train: bool = False,
+                ema_stats: tuple[torch.Tensor, torch.Tensor] | None = None,
+                valid_mask: torch.Tensor | None = None):
+        """NHWC latents -> (nearest codes through the straight-through form,
+        fp32; mean squared distance to the codes, fp32; the code usage
+        perplexity exp(-sum p log(p + 1e-6))).
+
+        The codes are looked up before any update.  `train`: the batch's
+        statistics, counts (the code histogram) and dw (the sum of the fp32
+        tokens of each code), update the EMA state in place; or, with
+        `ema_stats` (from `empty_stats`), are added to it and nothing is
+        updated, so that grad accumulation applies one `ema_update` from
+        the sums over its micro-batches.  `valid_mask` (B,) bool: the
+        perplexity counts only those rows' positions (padded dev batches)."""
         flat = z.reshape(-1, z.shape[-1]).float()
-        emb = self.embeddings.weight.float()
-        idx = nearest_code(flat, emb)
+        emb = self.embeddings.weight
+        with torch.no_grad():
+            idx = nearest_code(flat, emb)
         quant = emb[idx]
-        probs = torch.bincount(idx, minlength=emb.shape[0]).float() / idx.numel()
+        counts = torch.bincount(idx, minlength=emb.shape[0]).float()
+        if train:
+            with torch.no_grad():
+                dw = torch.zeros_like(emb).index_add_(0, idx, flat)
+                if ema_stats is None:
+                    self.ema_update(counts, dw)
+                else:
+                    ema_stats[0].add_(counts)
+                    ema_stats[1].add_(dw)
+        if valid_mask is None:
+            probs = counts / idx.numel()
+        else:
+            tok = valid_mask.float().repeat_interleave(idx.numel() // valid_mask.numel())
+            probs = (torch.bincount(idx, weights=tok, minlength=emb.shape[0])
+                     / torch.clamp(tok.sum(), min=1.0))
         perplexity = torch.exp(-torch.sum(probs * torch.log(probs + 1e-6)))
-        commitment = torch.mean((quant.detach() - flat) ** 2)
+        commitment = torch.mean((quant - flat) ** 2)
         return (flat + (quant - flat).detach()).reshape(z.shape), commitment, perplexity
 
 
@@ -138,7 +204,7 @@ class VAE(nn.Module):
         self.encoder = Encoder(arch, z_channels)
         self.decoder = Decoder(arch)
         if arch.bottleneck == "vq":
-            self.codebook = Codebook(arch.codebook_size, arch.z_dim)
+            self.codebook = Codebook(arch.codebook_size, arch.z_dim, arch.codebook_gamma)
 
     @staticmethod
     def reparametrize(latents: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
@@ -152,19 +218,24 @@ class VAE(nn.Module):
         return mean + noise * std
 
     def forward(self, x: torch.Tensor, sample: bool | None = None,
-                noise: torch.Tensor | None = None):
+                noise: torch.Tensor | None = None, train: bool = False,
+                ema_stats: tuple[torch.Tensor, torch.Tensor] | None = None,
+                valid_mask: torch.Tensor | None = None):
         """NHWC images -> (x_hat NHWC in the compute dtype, prior loss,
         perplexity), the roundtrip of stage-1 training.  KL decodes the
         reparametrized z when `sample` (the default for KL), else the
-        posterior mean; `noise` as in `encode`."""
+        posterior mean; the other arguments as in `encode`."""
         if sample is None:
             sample = self.arch.bottleneck == "kl"
-        z, prior, perplexity = self.encode(x, sample=sample, noise=noise)
+        z, prior, perplexity = self.encode(x, sample=sample, noise=noise, train=train,
+                                           ema_stats=ema_stats, valid_mask=valid_mask)
         if self.arch.bottleneck == "kl" and not sample:
             z = z[..., : self.arch.z_dim]
         return self.decode(z), prior, perplexity
 
-    def encode(self, x: torch.Tensor, sample: bool = False, noise: torch.Tensor | None = None):
+    def encode(self, x: torch.Tensor, sample: bool = False, noise: torch.Tensor | None = None,
+               train: bool = False, ema_stats: tuple[torch.Tensor, torch.Tensor] | None = None,
+               valid_mask: torch.Tensor | None = None):
         """NHWC images -> (z, prior loss, perplexity), the JAX `encode`.
 
         KL: the encoder's mean || log_var map with log_var clipped to
@@ -174,12 +245,13 @@ class VAE(nn.Module):
         mean; drawn here when None) being the reparametrization draw; else
         z is the raw map, the format of stored latents.  Perplexity is 0.
         VQ: the nearest codes (straight-through), beta times the commitment
-        loss, and the batch's code perplexity."""
-        raw = self.encoder(x.to(self.dtype).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        loss, and the batch's code perplexity; `train`, `ema_stats` and
+        `valid_mask` as in `Codebook.forward` (KL ignores them)."""
+        raw = self._encoder(x)
         if self.arch.bottleneck == "vq":
             if sample:
                 raise ValueError("Cannot sample from the VQ model!")
-            quant, commitment, perplexity = self.codebook.lookup(raw)
+            quant, commitment, perplexity = self.codebook(raw, train, ema_stats, valid_mask)
             return quant.to(self.dtype), self.arch.codebook_beta * commitment, perplexity
         mean, log_var = torch.chunk(raw.float(), 2, dim=-1)
         log_var = torch.clamp(log_var, -30.0, 20.0)
@@ -189,6 +261,16 @@ class VAE(nn.Module):
                 noise = torch.randn_like(mean)
             raw = (mean + noise * torch.exp(0.5 * log_var)).to(self.dtype)
         return raw, kl.mean(), kl.new_zeros(())
+
+    def _encoder(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encoder(x.to(self.dtype).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def encode_indices(self, x: torch.Tensor) -> torch.Tensor:
+        """VQ only: NHWC images -> the nearest code of each latent position,
+        (B, h, w), without touching the codebook's state."""
+        if self.arch.bottleneck != "vq":
+            raise ValueError("encode_indices requires the VQ bottleneck")
+        return self.codebook.indices(self._encoder(x))
 
     def decode(self, z: torch.Tensor, quantize: bool = False) -> torch.Tensor:
         """NHWC latents -> NHWC images in the compute dtype; `quantize`

@@ -6,9 +6,12 @@ scripts/train_vae.py.
 
 Runs on the CUDA card unless `--device cpu` is given.  Reads the uint8
 NHWC images named by the config (`train_set`, and `dev_set` when it exists),
-trains the KL VAE-GAN, evaluates on the dev set each epoch, and writes
-per-epoch checkpoints in the JAX trainer's layout.  Training without LPIPS
-weights changes the objective, so it needs `--allow-no-lpips`.
+trains the KL or VQ VAE-GAN (`configs/vae-kl-32x32.yaml`,
+`configs/vae-vq-32x32.yaml`) at any `grad_accum` that divides the batch,
+evaluates on the dev set each epoch, draws reconstruction figures of
+`plot_set` when that file exists, and writes per-epoch checkpoints in the
+JAX trainer's layout.  Training without LPIPS weights changes the
+objective, so it needs `--allow-no-lpips`.
 """
 
 from __future__ import annotations

@@ -1,11 +1,14 @@
-"""Stage-1 adversarial VAE training (KL bottleneck, VQGAN-style).
+"""Stage-1 adversarial VAE training (KL or VQ bottleneck, VQGAN-style).
 
 One train step:
   * uint8 NHWC images -> [-1, 1] fp32, flipped horizontally where the
     step's flip mask is set; the KL reparametrization noise is the step's
-    other draw (`VAEDraws`);
-  * ONE VAE forward (bf16 compute on fp32 parameters for the shipped
-    config), x_hat clamped to [-1, 1] in fp32;
+    other draw (`VAEDraws`; VQ leaves it unused).  Both are drawn at the
+    full batch, then split into `grad_accum` micro-batches;
+  * at `grad_accum: 1`, ONE VAE forward (bf16 compute on fp32 parameters
+    for the shipped configs), x_hat clamped to [-1, 1] in fp32, serves
+    both phases: the reference's single-forward, two-backward structure,
+    which the JAX package's jitted step recovers by recomputation;
   * phase 1, when the discriminator is active: the discriminator on the
     detached x_hat and then on x, in that order (BatchNorm running
     statistics updated by each pass), disc_weight * d_loss, its gradient's
@@ -13,20 +16,31 @@ One train step:
   * phase 2: percept * w + recon * w + prior * w, plus disc_weight * g_loss
     through the just-updated discriminator when active (a third
     discriminator pass, which updates the statistics too); clipping and
-    the VAE's Adam step with the warmup schedule.
-The one forward serves both phases: the reference's single-forward,
-two-backward structure, which the JAX package's jitted step recovers by
-recomputation.  Metrics (0-d device tensors, synced once per flush) carry
-the JAX package's names.
+    the VAE's Adam step with the warmup schedule;
+  * VQ: the codes are looked up in the codebook as it was before the step,
+    and the codebook takes exactly one EMA update a step from the batch's
+    code statistics (counts and dw over all its tokens).
+At `grad_accum` above 1 each phase loops over the micro-batches in order
+and applies one clipped Adam step from the mean of their gradients.  Phase
+1 runs a VAE forward without gradient per micro-batch (the JAX step's
+recomputation); phase 2 a forward with gradient, whose codebook statistics
+are summed and applied once after the step.  The discriminator's
+BatchNorm statistics chain through the micro-batches in the order of the
+passes.  Metrics are means over the micro-batches, gradient norms those of
+the averaged gradients; prior loss and perplexity come from phase 2's
+forwards, which see the parameters, codebook and inputs phase 1's would,
+so an inactive discriminator costs no phase-1 forward.  Metrics (0-d
+device tensors, synced once per flush) carry the JAX package's names.
 
 Trainer checkpoints are written and read in the JAX trainer's layout
-(trees vae, disc, disc_stats, vae_optim, disc_optim, extra.step; epoch and
-architecture in the meta), so a run saved by either package resumes in the
-other.
+(trees vae, disc, disc_stats, vae_optim, disc_optim, extra.step, and the
+VQ codebook; epoch and architecture in the meta), so a run saved by either
+package resumes in the other.  Dev evaluation logs the losses, and the VQ
+perplexity, over every dev sample once; every `log_imgs_freq` steps the
+first 4 images of `plot_set` (when the file exists) are drawn beside their
+reconstructions.
 
-Not ported yet: VQ training (the EMA codebook update; `bottleneck: vq`
-raises), grad accumulation above 1 (raises), the reconstruction figures of
-`plot_set`/`log_imgs_freq`, per-epoch FID and data-parallel meshes.
+Not ported yet: per-epoch FID and data-parallel meshes.
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ from ..core import resolve_device
 from ..core.config import VAEConfig
 from ..core.logging import BasicLogger
 from ..core.metrics import MetricHolder
+from ..core.plotting import plot_reconstructions, pyplot
 from ..core.preemption import PreemptionGuard
 from ..core.progress import progress
 from ..core.rng import epoch_seed, eval_generator, numpy_seed, root_seed, step_generator
@@ -110,10 +125,17 @@ class VAETrainState:
         return self.vae_opt.count
 
 
-def _set_grads(params: list[torch.Tensor], loss: torch.Tensor) -> None:
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    for p, g in zip(params, grads):
-        p.grad = g  # None for an unused parameter: the optimizer zero-fills it
+def _add_grads(acc: list, loss: torch.Tensor, params: list[torch.Tensor]) -> None:
+    """Add d loss / d params into `acc` (None where nothing was added yet;
+    a parameter the loss does not reach adds nothing)."""
+    for i, g in enumerate(torch.autograd.grad(loss, params, allow_unused=True)):
+        if g is not None:
+            acc[i] = g if acc[i] is None else acc[i].add_(g)
+
+
+def _set_grads(params: list[torch.Tensor], acc: list, n: int) -> None:
+    for p, g in zip(params, acc):
+        p.grad = None if g is None else g / n  # None: the optimizer zero-fills it
 
 
 def make_vae_train_step(cfg: VAEConfig, percept_fn: Callable | None = None):
@@ -122,59 +144,100 @@ def make_vae_train_step(cfg: VAEConfig, percept_fn: Callable | None = None):
     `percept_fn(real, fake)` is the LPIPS term (None: it contributes 0)."""
     tc = cfg.train
     d_loss_fn, g_loss_fn = D_LOSSES[tc.gan_loss], G_LOSSES[tc.gan_loss]
+    is_vq, accum = cfg.arch.bottleneck == "vq", tc.grad_accum
+
+    def vae_forward(vae: VAE, x, noise, **kw):
+        x_hat, prior, perplexity = vae(x, noise=noise, **kw)
+        return torch.clamp(x_hat.float(), -1.0, 1.0), prior, perplexity
 
     def train_step(state: VAETrainState, x_u8: torch.Tensor, draws, disc_active: bool) -> dict:
         if isinstance(draws, torch.Generator):
             draws = draw(draws, x_u8.shape[0], _latent_shape(cfg, x_u8))
         x = normalize_batch(x_u8, draws.flip)
-        with torch.enable_grad():
-            x_hat, prior, _ = state.vae(x, sample=True, noise=draws.noise)
-            x_hat = torch.clamp(x_hat.float(), -1.0, 1.0)
-        metrics = {"vae/prior_loss": prior.detach()}
+        micro = list(zip(x.chunk(accum), draws.noise.chunk(accum)))
+        sums: dict[str, torch.Tensor] = {}
+
+        def add(values: dict) -> None:
+            for k, v in values.items():
+                sums[k] = sums[k] + v.detach() if k in sums else v.detach()
+
+        # VQ at accum 1 updates the codebook in this forward, after its lookup
+        ema_stats = state.vae.codebook.empty_stats() if is_vq and accum > 1 else None
+        if accum == 1:
+            with torch.enable_grad():
+                forward = vae_forward(state.vae, x, draws.noise, train=True)
 
         if disc_active:  # phase 1: the discriminator, on detached fakes then reals
-            with torch.enable_grad():
-                out_fake = state.disc(x_hat.detach()).float()
-                out_real = state.disc(x).float()
-                d_loss = d_loss_fn(out_fake, out_real)
-                _set_grads(state.disc_opt.params, tc.disc_weight * d_loss)
-            metrics["gan/d_loss"] = d_loss.detach()
-            metrics["gan/fake_acc"] = (torch.sigmoid(out_fake.detach()) < 0.5).float().mean()
-            metrics["gan/real_acc"] = (torch.sigmoid(out_real.detach()) >= 0.5).float().mean()
-            metrics["gan/disc_grad"] = state.disc_opt.step()
+            d_params, acc = state.disc_opt.params, [None] * len(state.disc_opt.params)
+            for xm, nm in micro:
+                if accum == 1:
+                    x_hat = forward[0].detach()
+                else:
+                    with torch.no_grad():
+                        x_hat = vae_forward(state.vae, xm, nm)[0]
+                with torch.enable_grad():
+                    out_fake = state.disc(x_hat).float()
+                    out_real = state.disc(xm).float()
+                    d_loss = d_loss_fn(out_fake, out_real)
+                    _add_grads(acc, tc.disc_weight * d_loss, d_params)
+                add({"gan/d_loss": d_loss,
+                     "gan/fake_acc": (torch.sigmoid(out_fake.detach()) < 0.5).float().mean(),
+                     "gan/real_acc": (torch.sigmoid(out_real.detach()) >= 0.5).float().mean()})
+            _set_grads(d_params, acc, accum)
+            disc_grad = state.disc_opt.step()
 
-        with torch.enable_grad():  # phase 2: the VAE, through the updated discriminator
-            rl = recon_loss(x, x_hat)
-            pl = percept_fn(x, x_hat) if percept_fn is not None else x_hat.new_zeros(())
-            loss = pl * tc.percept_weight + rl * tc.recon_weight + prior * tc.prior_weight
-            if disc_active:
-                g_loss = g_loss_fn(state.disc(x_hat).float())
-                loss = loss + g_loss * tc.disc_weight
-            _set_grads(state.vae_opt.params, loss)
-        metrics["vae/recon_loss"] = rl.detach()
-        metrics["vae/percept_loss"] = pl.detach()
+        # phase 2: the VAE, through the updated discriminator
+        v_params, acc = state.vae_opt.params, [None] * len(state.vae_opt.params)
+        for xm, nm in micro:
+            with torch.enable_grad():
+                if accum == 1:
+                    x_hat, prior, perplexity = forward
+                else:
+                    x_hat, prior, perplexity = vae_forward(state.vae, xm, nm, train=True,
+                                                           ema_stats=ema_stats)
+                rl = recon_loss(xm, x_hat)
+                pl = percept_fn(xm, x_hat) if percept_fn is not None else x_hat.new_zeros(())
+                loss = pl * tc.percept_weight + rl * tc.recon_weight + prior * tc.prior_weight
+                if disc_active:
+                    g_loss = g_loss_fn(state.disc(x_hat).float())
+                    loss = loss + g_loss * tc.disc_weight
+                    add({"gan/g_loss": g_loss})
+                _add_grads(acc, loss, v_params)
+            add({"vae/prior_loss": prior, "vae/recon_loss": rl, "vae/percept_loss": pl})
+            if is_vq:
+                add({"vae/perplexity": perplexity})
+        _set_grads(v_params, acc, accum)
+        metrics = {k: v / accum for k, v in sums.items()}
         metrics["vae/vae_grad"] = state.vae_opt.step()
         if disc_active:
-            metrics["gan/g_loss"] = g_loss.detach()
+            metrics["gan/disc_grad"] = disc_grad
+        if ema_stats is not None:
+            state.vae.codebook.ema_update(*ema_stats)
         return metrics
 
     return train_step
 
 
 def make_eval_step(percept_fn: Callable | None = None):
-    """-> eval_step(vae, x_u8, noise) -> (per-sample recon losses,
-    per-sample perceptual losses), no gradients; `noise` is the batch's
-    reparametrization draw."""
+    """-> eval_step(vae, x_u8, noise, n_valid=None) -> (x_hat clamped to
+    [-1, 1] fp32, per-sample recon losses, per-sample perceptual losses,
+    perplexity), no gradients and no codebook update.  `noise` is the
+    batch's reparametrization draw (KL; VQ ignores it); the VQ perplexity
+    counts only the first `n_valid` rows (all when None), KL's is 0."""
 
     @torch.no_grad()
-    def eval_step(vae: VAE, x_u8: torch.Tensor, noise: torch.Tensor):
+    def eval_step(vae: VAE, x_u8: torch.Tensor, noise: torch.Tensor | None,
+                  n_valid: int | None = None):
         x = normalize_batch(x_u8)
-        x_hat, _, _ = vae(x, sample=True, noise=noise)
+        mask = None
+        if vae.arch.bottleneck == "vq" and n_valid is not None:
+            mask = torch.arange(x.shape[0], device=x.device) < n_valid
+        x_hat, _, perplexity = vae(x, noise=noise, valid_mask=mask)
         x_hat = torch.clamp(x_hat.float(), -1.0, 1.0)
         rl = recon_loss_per_sample(x, x_hat)
         pl = (percept_fn(x, x_hat, reduce=False) if percept_fn is not None
               else x.new_zeros((x.shape[0],)))
-        return rl, pl
+        return x_hat, rl, pl, perplexity
 
     return eval_step
 
@@ -187,12 +250,7 @@ class VAETrainer:
                  run_name: str = "vae", percept_fn: LPIPS | None = None,
                  device: str | torch.device = "cuda"):
         tc = config.train
-        if config.arch.bottleneck != "kl":
-            raise ValueError("VQ training (the EMA codebook update) is not ported; "
-                             "the trainer takes bottleneck: kl")
         tc.validate_accum()
-        if tc.grad_accum != 1:
-            raise ValueError(f"grad_accum {tc.grad_accum} is not ported; use grad_accum: 1")
         self.cfg = config
         self.train_set = train_set
         self.dev_set = dev_set
@@ -229,12 +287,20 @@ class VAETrainer:
             logger.log_console("No checkpoint provided. Training from scratch.")
         self.train_step = make_vae_train_step(config, percept_fn)
         self.eval_step = make_eval_step(percept_fn)
+        # the fixed plot set of the periodic reconstruction figures
+        self.plot_images = None
+        if tc.plot_set and os.path.exists(tc.plot_set):
+            pyplot()  # fails here, not at the first figure, without matplotlib
+            self.plot_images = torch.from_numpy(np.load(tc.plot_set)[:4]).to(self.device)
 
     @torch.no_grad()
     def _restore(self, path: str) -> None:
         trees, meta = ckpt.load_checkpoint(path)
         st = self.state
-        st.vae.load_state_dict(vae_state_dict({"params": trees["vae"]}))
+        variables = {"params": trees["vae"]}
+        if "codebook" in trees:
+            variables["codebook"] = trees["codebook"]
+        st.vae.load_state_dict(vae_state_dict(variables))
         st.disc.load_state_dict(disc_state_dict(trees["disc"], trees["disc_stats"]))
         for opt, tree, to_torch, names in (
                 (st.vae_opt, trees["vae_optim"], lambda t: vae_state_dict({"params": t}),
@@ -270,6 +336,10 @@ class VAETrainer:
                                  clipped),
             extra={"step": np.asarray(st.step, dtype=np.int32)},
         )
+        if self.cfg.arch.bottleneck == "vq":
+            trees["codebook"] = vae_flax_variables(
+                {k: v for k, v in st.vae.state_dict().items() if k.startswith("codebook.")}
+            )["codebook"]
         if asynchronous:
             self.saver.save(path, self.cfg.arch.to_dict(), epoch, **trees)
         else:
@@ -294,6 +364,8 @@ class VAETrainer:
                                     device=self.device)
             for step, (x,) in enumerate(progress(batches, total=spe, desc=f"epoch {epoch}")):
                 adjusted_step = epoch * spe + step
+                if self.plot_images is not None and (adjusted_step + 1) % cfg.log_imgs_freq == 0:
+                    self._log_reconstructions(adjusted_step, eseed)
                 metrics = self.train_step(self.state, x, gen,
                                           disc_active=adjusted_step >= cfg.disc_start)
                 self.holder.store_dict(metrics)
@@ -319,20 +391,34 @@ class VAETrainer:
             self.logger.log_console(f"Saving checkpoint {path} (async)")
         self.saver.wait()
 
+    def _log_reconstructions(self, step: int, seed: int) -> None:
+        """The plot set beside its reconstructions through the eval path,
+        logged as plots/{step}_recon.png."""
+        x = self.plot_images
+        noise = torch.randn((x.shape[0], *_latent_shape(self.cfg, x)),
+                            generator=eval_generator(seed, self.device), device=self.device)
+        x_hat = self.eval_step(self.state.vae, x, noise)[0]
+        fig = plot_reconstructions(normalize_batch(x).cpu().numpy(), x_hat.cpu().numpy())
+        self.logger.log_figure(f"plots/{step}_recon.png", fig)
+
     def _evaluate(self, epoch: int, seed: int) -> None:
         """Dev losses over the whole dev set: the tail batch is padded and
         weighted by its valid count, so every sample counts once; each
-        batch gets fresh reparametrization noise.  One sync at the end."""
+        batch gets fresh reparametrization noise.  The VQ perplexity of a
+        batch counts its valid rows' codes and is weighted by their number.
+        One sync at the end."""
         cfg = self.cfg.train
         gen = eval_generator(seed, self.device)
-        sums, n_seen = torch.zeros(2, device=self.device), 0
+        sums, n_seen = torch.zeros(3, device=self.device), 0
         for n_valid, (x,) in eval_batches(self.dev_set, cfg.batch_size, self.device):
             noise = torch.randn((x.shape[0], *_latent_shape(self.cfg, x)), generator=gen,
                                 device=self.device)
-            rl, pl = self.eval_step(self.state.vae, x, noise)
-            sums += torch.stack([rl[:n_valid].sum(), pl[:n_valid].sum()])
+            _, rl, pl, perplexity = self.eval_step(self.state.vae, x, noise, n_valid)
+            sums += torch.stack([rl[:n_valid].sum(), pl[:n_valid].sum(), perplexity * n_valid])
             n_seen += n_valid
         if n_seen:
-            recon, percept = (sums / n_seen).tolist()
+            recon, percept, perplexity = (sums / n_seen).tolist()
             self.logger.log_metric("dev/recon_loss", recon, step=epoch)
             self.logger.log_metric("dev/percept_loss", percept, step=epoch)
+            if self.cfg.arch.bottleneck == "vq":
+                self.logger.log_metric("dev/perplexity", perplexity, step=epoch)

@@ -328,3 +328,44 @@ def test_vae_gradients_through_flash_attention_match_the_cpu(card):
     for n in cpu_g:
         assert card_g[n].abs().sum() > 0, n
         assert float((card_g[n] - cpu_g[n]).norm() / cpu_g[n].norm()) < 1e-1, n
+
+
+@pytest.mark.cuda
+def test_vq_vae_train_forward_launches_flash_and_updates_the_codebook(card):
+    """A tiny VQ VAE's train-mode forward at batch 2 on the card (bf16
+    compute on fp32 parameters) launches the flash kernel at both sites,
+    and its one EMA update matches the float64 statement of the update on
+    the same codes and tokens: cluster sizes, ema_w and embeddings at
+    max|card - fp64| / max|fp64| <= 1e-4 (fp32 sums in any order)."""
+    from image_diffusion_torch.core.config import VAEArch
+    from image_diffusion_torch.models import build_vae
+    from image_diffusion_torch.models.vae import nearest_code
+    from image_diffusion_torch.ops.attention import flash_attention
+
+    arch = VAEArch(channels=(16, 128), z_dim=3, bottleneck="vq", codebook_size=64,
+                   codebook_beta=0.25, codebook_gamma=0.99, enc_num_res_blocks=1,
+                   dec_num_res_blocks=1, init_resolution=16, num_groups=8)
+    g = torch.Generator().manual_seed(0)
+    model = build_vae(arch, torch.bfloat16, "cuda", g, param_dtype=torch.float32)
+    x = torch.randn(2, 16, 16, 3, generator=g).cuda()
+    cb = model.codebook
+    cs0, w0, emb0 = (t.clone() for t in (cb.ema_cluster_size, cb.ema_w, cb.embeddings.weight))
+    seen = []
+    cb.register_forward_pre_hook(lambda m, args: seen.append(args[0].detach().clone()))
+    before = flash_attention.launches
+    out, prior, perplexity = model(x, train=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == 2
+    assert out.shape == (2, 16, 16, 3) and torch.isfinite(out.float()).all()
+    flat = seen[0].reshape(-1, 3).float()
+    idx = nearest_code(flat, emb0)
+    counts = torch.bincount(idx, minlength=64).double()
+    dw = torch.zeros(64, 3, dtype=torch.float64, device="cuda").index_add_(0, idx, flat.double())
+    cs = cs0.double() * 0.99 + 0.01 * counts
+    n = cs.sum()
+    smoothed = (cs + 1e-5) / (n + 64 * 1e-5) * n
+    w = w0.double() * 0.99 + 0.01 * dw
+    for got, ref in ((cb.ema_cluster_size, smoothed), (cb.ema_w, w),
+                     (cb.embeddings.weight, w / smoothed[:, None])):
+        assert got.dtype == torch.float32
+        assert float((got.double() - ref).abs().max() / ref.abs().max()) <= 1e-4

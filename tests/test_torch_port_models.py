@@ -213,3 +213,93 @@ def test_fresh_vq_codebook_draws_from_the_reference_distribution():
     assert not cb.ema_cluster_size.any()
     empty = build_vae(arch, torch.float32, "cpu").codebook
     assert not any(t.any() for t in (empty.embeddings.weight, empty.ema_w, empty.ema_cluster_size))
+
+
+def _codebook_state(rng, size, dim):
+    """A codebook state as training leaves it: spread embeddings, positive
+    cluster sizes, EMA sums."""
+    return {"embeddings": rng.standard_normal((size, dim)).astype(np.float32),
+            "ema_cluster_size": rng.uniform(0.5, 3.0, size).astype(np.float32),
+            "ema_w": rng.standard_normal((size, dim)).astype(np.float32)}
+
+
+def test_codebook_train_mode_and_ema_update_match_flax():
+    """The same embeddings, state and fp32 tokens: codes equal; the deferred
+    statistics (counts, dw) and the state after one train-mode update
+    (cluster sizes, ema_w, embeddings) at rtol 1e-5; the straight-through
+    output, beta times the commitment loss, the perplexity and the
+    perplexity over the valid rows only at 2e-4; `indices` equal."""
+    from image_diffusion_tpu.models.vae import Codebook as JCodebook
+    from image_diffusion_torch.models.vae import Codebook
+
+    rng = np.random.default_rng(11)
+    state = _codebook_state(rng, 16, 3)
+    z = rng.standard_normal((3, 4, 4, 3)).astype(np.float32)
+    mask = np.array([True, True, False])
+    jcb = JCodebook(size=16, dim=3, beta=0.25, gamma=0.99, dtype=jnp.float32)
+    variables = {"codebook": state}
+    (ref_q, ref_loss, ref_perp), mut = jcb.apply(variables, z, train=True, mutable=["codebook"])
+    _, sown = jcb.apply(variables, z, train=True, defer_ema=True, mutable=["vq_stats"])
+    ref_masked = jcb.apply(variables, z, valid_mask=mask)[2]
+    ref_idx = np.asarray(jcb.apply(variables, z, method="indices"))
+
+    cb = Codebook(16, 3, 0.99)
+    cb.load_state_dict({"embeddings.weight": torch.from_numpy(state["embeddings"]),
+                        "ema_cluster_size": torch.from_numpy(state["ema_cluster_size"]),
+                        "ema_w": torch.from_numpy(state["ema_w"])})
+    tz = torch.from_numpy(z)
+    np.testing.assert_array_equal(cb.indices(tz).numpy(), ref_idx)
+    stats = cb.empty_stats()
+    q, commitment, perp = cb(tz, train=True, ema_stats=stats)
+    assert torch.equal(cb.embeddings.weight, torch.from_numpy(state["embeddings"]))  # deferred
+    for got, name in zip(stats, ("counts", "dw")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(sown["vq_stats"][name]), rtol=1e-5)
+    np.testing.assert_allclose(float(perp), float(ref_perp), rtol=ATOL)
+    np.testing.assert_allclose(float(cb(tz, valid_mask=torch.from_numpy(mask))[2]),
+                               float(ref_masked), rtol=ATOL)
+    q2, commitment2, _ = cb(tz, train=True)  # the codes of the state before the update
+    for got in (q, q2):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref_q), atol=ATOL)
+    for got in (commitment, commitment2):
+        np.testing.assert_allclose(0.25 * float(got), float(ref_loss), rtol=ATOL)
+    new = mut["codebook"]
+    for got, name in ((cb.ema_cluster_size, "ema_cluster_size"), (cb.ema_w, "ema_w"),
+                      (cb.embeddings.weight, "embeddings")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(new[name]), rtol=1e-5)
+
+
+def test_codebook_is_state_not_a_parameter():
+    """The codebook is no parameter of the VAE (so no optimizer or count
+    sees it), is held in fp32 at any parameter dtype, keeps its state-dict
+    keys, and the parameters alone convert to flax params."""
+    arch = VAEArch(**VAE_TINY, **VQ)
+    for param_dtype in (torch.float32, torch.bfloat16):
+        model = build_vae(arch, torch.bfloat16, "cpu", torch.Generator().manual_seed(0),
+                          param_dtype=param_dtype)
+        assert not [n for n, _ in model.named_parameters() if n.startswith("codebook")]
+        assert {n for n, _ in model.named_buffers() if n.startswith("codebook")} == {
+            "codebook.embeddings.weight", "codebook.ema_cluster_size", "codebook.ema_w"}
+        assert all(b.dtype == torch.float32 for b in model.codebook.buffers())
+        assert sum(p.numel() for p in model.parameters()) == sum(
+            v.numel() for k, v in model.state_dict().items() if not k.startswith("codebook."))
+    variables = vae_flax_variables(dict(model.named_parameters()))
+    assert set(variables) == {"params"}
+
+
+def test_encode_indices_match_flax():
+    """encode_indices (VQ) on the same weights and spread embeddings: the
+    codes equal; KL refuses."""
+    jmodel = JVAE(**VAE_TINY, **VQ, dtype=jnp.float32)
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    variables = jax.tree.map(np.asarray, jax.jit(
+        lambda: jmodel.init({"params": jax.random.key(0)}, x, sample=False))())
+    variables["codebook"]["codebook"] = _codebook_state(rng, 32, 3)
+    ref = np.asarray(jax.jit(lambda v, x: jmodel.apply(v, x, method="encode_indices"))(variables, x))
+    model = build_vae(VAEArch(**VAE_TINY, **VQ), torch.float32, "cpu")
+    model.load_state_dict(vae_state_dict(variables))
+    got = model.encode_indices(torch.from_numpy(x))
+    assert got.shape == (2, 16, 16) and len(np.unique(ref)) > 1
+    np.testing.assert_array_equal(got.numpy(), ref)
+    with pytest.raises(ValueError, match="VQ"):
+        build_vae(VAEArch(**VAE_TINY), torch.float32, "cpu").encode_indices(torch.from_numpy(x))

@@ -1,8 +1,9 @@
 """The port's stage-1 training against the JAX package's, on the CPU: the
 losses, the discriminator's train-mode BatchNorm, LPIPS, the tiny KL VAE's
-training forward, one fp32 VAE-GAN train step with the discriminator
-inactive and active, trainer checkpoints across packages, dev-set batching
-and the CLI."""
+training forward, one fp32 VAE-GAN train step of either bottleneck with the
+discriminator inactive and active, one step at grad_accum 2 against JAX's
+and against the port's own step at 1, trainer checkpoints across packages,
+dev-set batching and perplexity, the reconstruction figure and the CLI."""
 
 import os
 import subprocess
@@ -38,6 +39,7 @@ from image_diffusion_torch.compat.from_jax import (
 from image_diffusion_torch.core import config as tcfg
 from image_diffusion_torch.core.logging import BasicLogger
 from image_diffusion_torch.core.metrics import MetricHolder
+from image_diffusion_torch.core.plotting import plot_reconstructions
 from image_diffusion_torch.models import build_discriminator, build_vae
 from image_diffusion_torch.models.lpips import LPIPS
 from image_diffusion_torch.training import data as tdata
@@ -59,13 +61,15 @@ ARCH = dict(in_channels=3, channels=(8, 16), z_dim=3, enc_num_res_blocks=1, dec_
             attn_resolutions=(), num_heads=1, init_resolution=16, num_groups=4)
 TRAIN = dict(learning_rate=1e-3, batch_size=4, epochs=1, clip_grad=1.0, precision="fp32", seed=0,
              log_interval=1, disc_start=1, disc_channels=(8, 16))
+VQ = dict(bottleneck="vq", codebook_size=16, codebook_beta=0.25, codebook_gamma=0.99)
 RNG = jax.random.key(7)
 
 
-def configs(tmp, **over):
+def configs(tmp, bottleneck="kl", **over):
+    arch = {**ARCH, **(VQ if bottleneck == "vq" else {})}
     train = {**TRAIN, "checkpoints_dir": str(tmp), "logs_dir": str(tmp), **over}
-    return (jcfg.VAEConfig(jcfg.VAEArch(**ARCH), jcfg.VAETrainConfig(**train)),
-            tcfg.VAEConfig(tcfg.VAEArch(**ARCH), tcfg.VAETrainConfig(**train)))
+    return (jcfg.VAEConfig(jcfg.VAEArch(**arch), jcfg.VAETrainConfig(**train)),
+            tcfg.VAEConfig(tcfg.VAEArch(**arch), tcfg.VAETrainConfig(**train)))
 
 
 def images(n=4, res=16, seed=1):
@@ -195,11 +199,24 @@ def test_lpips_file_loader(tmp_path):
     assert try_load_lpips(None) is None and try_load_lpips(str(tmp_path / "missing.pth")) is None
 
 
+_MODELS = {}
+
+
+def models(bottleneck):
+    """The tiny JAX VAE (fp32) of `bottleneck`, discriminator, random LPIPS
+    and initial variables (made once per bottleneck)."""
+    if bottleneck not in _MODELS:
+        _MODELS[bottleneck] = _make_models(bottleneck)
+    return _MODELS[bottleneck]
+
+
 @pytest.fixture(scope="module")
 def jax_models():
-    """The tiny JAX VAE (fp32), discriminator, random LPIPS and initial
-    variables."""
-    jc, _ = configs("/nonexistent")
+    return models("kl")
+
+
+def _make_models(bottleneck):
+    jc, _ = configs("/nonexistent", bottleneck)
     vae = jbuild_vae(jc.arch, dtype=jnp.float32)
     disc = JDiscriminator(channels=jc.train.disc_channels, dtype=jnp.float32)
     x0 = np.zeros((1, 16, 16, 3), np.float32)
@@ -243,21 +260,34 @@ def jax_draws(step, B=4):
 _JAX_STEPS = {}
 
 
-def jax_step(jax_models, disc_active):
+def jax_step(bottleneck, disc_active, accum=1):
     """One fp32 JAX train step from the initial variables: the new state
-    and the metrics (computed once per `disc_active`)."""
-    if disc_active not in _JAX_STEPS:
-        _JAX_STEPS[disc_active] = _run_jax_step(jax_models, disc_active)
-    return _JAX_STEPS[disc_active]
+    and the metrics (computed once per argument set)."""
+    key = (bottleneck, disc_active, accum)
+    if key not in _JAX_STEPS:
+        _JAX_STEPS[key] = _run_jax_step(*key)
+    return _JAX_STEPS[key]
 
 
-def _run_jax_step(jax_models, disc_active):
-    vae, disc, lp, vae_vars, disc_vars = jax_models
-    jc, _ = configs("/nonexistent")
+def percept(bottleneck, lpips):
+    """The step tests' LPIPS term: `lpips` for KL, none for VQ.  A tiny VQ
+    VAE at init decodes every position from nearly the same code, so its
+    reconstructions are nearly constant and the random VGG's max-pools see
+    near-ties: JAX's own LPIPS gradient moves by 1.1% (relative L2) when
+    x_hat moves by 2.4e-6, the size of the port-vs-JAX difference in
+    x_hat, so a VQ step with LPIPS would hold that conditioning to the
+    2e-4 bar, not the trainer.  The KL cases hold the LPIPS term's path."""
+    return lpips if bottleneck == "kl" else None
+
+
+def _run_jax_step(bottleneck, disc_active, accum):
+    vae, disc, lp, vae_vars, disc_vars = models(bottleneck)
+    lp = percept(bottleneck, lp)
+    jc, _ = configs("/nonexistent", bottleneck, grad_accum=accum)
     vae_tx = make_optimizer(jc.train.learning_rate, jc.train.warmup_steps, jc.train.clip_grad)
     disc_tx = make_optimizer(jc.train.learning_rate, 0, jc.train.clip_grad)
     state = JState(step=jnp.zeros((), jnp.int32), vae_params=vae_vars["params"],
-                   vae_opt=vae_tx.init(vae_vars["params"]), codebook=None,
+                   vae_opt=vae_tx.init(vae_vars["params"]), codebook=vae_vars.get("codebook"),
                    disc_params=disc_vars["params"], disc_stats=disc_vars["batch_stats"],
                    disc_opt=disc_tx.init(disc_vars["params"]))
     step = jmake_step(vae, disc, jc, lp, vae_tx, disc_tx)
@@ -265,9 +295,9 @@ def _run_jax_step(jax_models, disc_active):
     return jax.tree.map(np.asarray, new), {k: float(v) for k, v in metrics.items()}
 
 
-def port_state(jax_models):
-    _, _, _, vae_vars, disc_vars = jax_models
-    _, tc = configs("/nonexistent")
+def port_state(bottleneck):
+    _, _, _, vae_vars, disc_vars = models(bottleneck)
+    _, tc = configs("/nonexistent", bottleneck)
     vae = build_vae(tc.arch, torch.float32, "cpu", param_dtype=torch.float32)
     vae.load_state_dict(vae_state_dict(vae_vars))
     disc = build_discriminator(tc.train.disc_channels, torch.float32, "cpu")
@@ -275,6 +305,22 @@ def port_state(jax_models):
     lr, clip = tc.train.learning_rate, tc.train.clip_grad
     return VAETrainState(vae, disc, Optimizer(vae.parameters(), lr, tc.train.warmup_steps, clip),
                          Optimizer(disc.parameters(), lr, 0, clip))
+
+
+def port_step(bottleneck, disc_active, accum=1):
+    """The port's step on `jax_step`'s inputs: (state, metrics)."""
+    state = port_state(bottleneck)
+    _, tc = configs("/nonexistent", bottleneck, grad_accum=accum)
+    lpips = percept(bottleneck, LPIPS.from_state_dict(random_lpips_state(0)))
+    metrics = make_vae_train_step(tc, lpips)(state, torch.from_numpy(images()), jax_draws(0),
+                                             disc_active)
+    return state, metrics
+
+
+def codebook_tree(vae):
+    """The port VAE's codebook as the JAX trainer's `codebook` tree."""
+    return vae_flax_variables({k: v for k, v in vae.state_dict().items()
+                               if k.startswith("codebook.")})["codebook"]
 
 
 def _assert_moments(got, ref):
@@ -286,20 +332,16 @@ def _assert_moments(got, ref):
         assert np.linalg.norm(a - b) < 2e-4 * np.linalg.norm(b) + 1e-9
 
 
-@pytest.mark.parametrize("disc_active", [False, True], ids=["disc_inactive", "disc_active"])
-def test_one_fp32_train_step_matches_jax(jax_models, disc_active):
-    """The same parameters, batch, flip mask and noise: every metric at
-    rtol 2e-4; both Adams' moments per tensor (see `_assert_moments`); the
-    parameter updates p - p0 over all tensors at relative L2 1e-3 (Adam
-    divides by sqrt(nu), which turns fp noise in near-zero gradients into
-    lr-sized differences per element); BatchNorm running statistics at
-    1e-6."""
-    _, _, lp, vae_vars, disc_vars = jax_models
-    ref_state, ref_metrics = jax_step(jax_models, disc_active)
-    state = port_state(jax_models)
-    _, tc = configs("/nonexistent")
-    metrics = make_vae_train_step(tc, LPIPS.from_state_dict(random_lpips_state(0)))(
-        state, torch.from_numpy(images()), jax_draws(0), disc_active)
+def _assert_step_matches(state, metrics, bottleneck, disc_active, accum=1):
+    """The port's step against JAX's from the same state and inputs: every
+    metric at rtol 2e-4; both Adams' moments per tensor (see
+    `_assert_moments`); the parameter updates p - p0 over all tensors at
+    relative L2 1e-3 (Adam divides by sqrt(nu), which turns fp noise in
+    near-zero gradients into lr-sized differences per element); BatchNorm
+    running statistics at 1e-6; the VQ codebook (cluster sizes, ema_w,
+    embeddings) at rtol 1e-5."""
+    _, _, _, vae_vars, disc_vars = models(bottleneck)
+    ref_state, ref_metrics = jax_step(bottleneck, disc_active, accum)
     assert set(metrics) == set(ref_metrics)
     for name, ref in ref_metrics.items():
         assert float(metrics[name]) == pytest.approx(ref, rel=2e-4, abs=1e-7), name
@@ -323,6 +365,11 @@ def test_one_fp32_train_step_matches_jax(jax_models, disc_active):
                                                          leaves(vae_vars["params"]))])
     assert rel_l2(got, ref) < 1e-3
     assert state.step == int(ref_state.step) == 1
+    if bottleneck == "vq":
+        jax.tree.map(lambda a, b: np.testing.assert_allclose(a, b, rtol=1e-5),
+                     codebook_tree(state.vae), ref_state.codebook)
+        assert not np.array_equal(ref_state.codebook["codebook"]["embeddings"],
+                                  vae_vars["codebook"]["codebook"]["embeddings"])
 
     stats = disc_flax_stats(state.disc.state_dict())
     for a, b in zip(leaves(stats), leaves(ref_state.disc_stats)):
@@ -344,19 +391,62 @@ def test_one_fp32_train_step_matches_jax(jax_models, disc_active):
         jax.tree.map(np.testing.assert_array_equal, stats, disc_vars["batch_stats"])
 
 
+@pytest.mark.parametrize("disc_active", [False, True], ids=["disc_inactive", "disc_active"])
+@pytest.mark.parametrize("bottleneck", ["kl", "vq"])
+def test_one_fp32_train_step_matches_jax(bottleneck, disc_active):
+    """The same parameters, codebook, batch, flip mask and noise: the state
+    and metrics after one step (see `_assert_step_matches`)."""
+    _assert_step_matches(*port_step(bottleneck, disc_active), bottleneck, disc_active)
+
+
+@pytest.mark.parametrize("bottleneck", ["kl", "vq"])
+def test_accumulated_train_step_matches_jax(bottleneck):
+    """grad_accum 2 with the discriminator active against JAX's grad_accum
+    2 step: the micro-batches' BatchNorm statistics chained in the same
+    order, the VQ statistics summed and applied once (see
+    `_assert_step_matches`)."""
+    _assert_step_matches(*port_step(bottleneck, True, accum=2), bottleneck, True, accum=2)
+
+
+@pytest.mark.parametrize("bottleneck", ["kl", "vq"])
+def test_accumulated_train_step_matches_one_shot(bottleneck):
+    """With the discriminator inactive, grad_accum 2 equals grad_accum 1 on
+    the same batch: recon, percept and prior losses and the gradient norm
+    at rtol 1e-5; the gradient Adam was given (clipped, averaged over the
+    micro-batches) at relative L2 1e-6, fp32 summation-order noise (~1e-7);
+    the parameter updates at relative L2 1e-3 (see
+    `test_one_fp32_train_step_matches_jax`); the codebook after its one
+    EMA update at rtol 1e-5."""
+    one, m1 = port_step(bottleneck, False)
+    two, m2 = port_step(bottleneck, False, accum=2)
+    for k in ("vae/recon_loss", "vae/percept_loss", "vae/prior_loss", "vae/vae_grad"):
+        assert float(m2[k]) == pytest.approx(float(m1[k]), rel=1e-5, abs=1e-7), k
+    g1, g2 = (torch.cat([p.grad.flatten() for p in s.vae_opt.params]) for s in (one, two))
+    assert rel_l2(g2.numpy(), g1.numpy()) < 1e-6
+    p0 = port_state(bottleneck).vae_opt.params
+    u1, u2 = (torch.cat([(p - q).flatten() for p, q in zip(s.vae_opt.params, p0)]).detach()
+              for s in (one, two))
+    assert rel_l2(u2.numpy(), u1.numpy()) < 1e-3
+    if bottleneck == "vq":
+        for a, b in zip(two.vae.codebook.buffers(), one.vae.codebook.buffers()):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5)
+    assert two.step == one.step == 1 and two.disc_opt.count == 0
+
+
 # ------------------------------------------------------------- the trainer
 
 
-def test_checkpoints_cross_packages(tmp_path, jax_models):
+@pytest.mark.parametrize("bottleneck", ["kl", "vq"])
+def test_checkpoints_cross_packages(tmp_path, bottleneck):
     """A JAX trainer checkpoint resumes in the port with equal parameters,
-    BatchNorm statistics, both Adams' moments and step; after one more
-    step the port's checkpoint restores into the JAX trainer's state and
-    resumes in the JAX trainer with equal values."""
-    jc, tc = configs(tmp_path)
+    VQ codebook, BatchNorm statistics, both Adams' moments and step; after
+    one more step the port's checkpoint restores into the JAX trainer's
+    state and resumes in the JAX trainer with equal values."""
+    jc, tc = configs(tmp_path, bottleneck)
     data = jdata.ArrayDataset(images())
     jtrainer = JTrainer(jc, data, None, JLogger(str(tmp_path), "j", True, 1), JHolder(1),
                         run_name="j")
-    jtrainer.state, _ = jax_step(jax_models, disc_active=True)
+    jtrainer.state, _ = jax_step(bottleneck, disc_active=True)
     path = jtrainer.save(0)
     js = jtrainer.state
 
@@ -378,6 +468,8 @@ def test_checkpoints_cross_packages(tmp_path, jax_models):
                                     dadam.nu, js.disc_stats]):
         for a, b in zip(leaves(got), leaves(ref)):
             np.testing.assert_array_equal(a, b)
+    if bottleneck == "vq":
+        jax.tree.map(np.testing.assert_array_equal, codebook_tree(st.vae), js.codebook)
 
     trainer.train_step(st, torch.from_numpy(images()), jax_draws(1), True)
     back = trainer.save(3)
@@ -396,6 +488,30 @@ def test_checkpoints_cross_packages(tmp_path, jax_models):
             np.testing.assert_array_equal(a, b)
     resumed = JTrainer(jc, data, None, jtrainer.logger, JHolder(1), checkpoint=back, run_name="j")
     assert int(resumed.state.step) == 2 and resumed.curr_epoch == 4
+    assert ("codebook" in saved) == (bottleneck == "vq")
+    if bottleneck == "vq":
+        assert not np.array_equal(saved["codebook"]["codebook"]["embeddings"],
+                                  js.codebook["codebook"]["embeddings"])
+        for tree in (jckpt.restore_into(js.codebook, saved["codebook"]), resumed.state.codebook):
+            jax.tree.map(np.testing.assert_array_equal, tree, codebook_tree(st.vae))
+
+
+def test_checkpoint_trees_are_copies_of_the_state():
+    """The flax trees a checkpoint is written from hold copies of the CPU
+    tensors, not views: an asynchronous save serializes them on a thread
+    while the next step updates parameters and codebook in place."""
+    vae = build_vae(configs("/nonexistent", "vq")[1].arch, torch.float32, "cpu",
+                    torch.Generator().manual_seed(0))
+    disc = build_discriminator((8, 16), torch.float32, "cpu", torch.Generator().manual_seed(1))
+    trees = [vae_flax_variables(vae.state_dict()), disc_flax_params(dict(disc.named_parameters())),
+             disc_flax_stats(disc.state_dict())]
+    before = [[a.copy() for a in leaves(t)] for t in trees]
+    with torch.no_grad():
+        for t in list(vae.state_dict().values()) + list(disc.state_dict().values()):
+            t.add_(1.0)
+    for tree, ref in zip(trees, before):
+        for a, b in zip(leaves(tree), ref):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_eval_batches_count_each_sample_once():
@@ -431,7 +547,7 @@ def test_dev_evaluation_weights_the_padded_tail(tmp_path):
     gen, recon, percept = eval_generator(5), [], []
     for n_valid, (xb,) in tdata.eval_batches(tdata.ArrayDataset(x), 3):
         noise = torch.randn((3, 8, 8, 3), generator=gen)
-        rl, pl = trainer.eval_step(trainer.state.vae, xb, noise)
+        _, rl, pl, _ = trainer.eval_step(trainer.state.vae, xb, noise, n_valid)
         recon.append(rl[:n_valid])
         percept.append(pl[:n_valid])
     assert len(torch.cat(recon)) == 8
@@ -439,24 +555,114 @@ def test_dev_evaluation_weights_the_padded_tail(tmp_path):
     assert logged["dev/percept_loss"] == pytest.approx(float(torch.cat(percept).mean()), rel=1e-6)
 
 
-def test_trainer_refuses_what_is_not_ported(tmp_path):
-    _, tc = configs(tmp_path, grad_accum=2)
+def dev_images():
+    """8 images of distinct brightness, so that the tiny VQ VAE's tokens
+    spread over the codes of `spread_codebook`."""
+    rng = np.random.default_rng(9)
+    return (rng.integers(0, 64, (8, 16, 16, 3)) + 24 * np.arange(8)[:, None, None, None]
+            ).astype(np.uint8)
+
+
+def vq_trainers(tmp_path, jlogger, tlogger, **over):
+    """A JAX VQ trainer whose codebook holds 16 of its encoder's tokens of
+    `dev_images` (the float64 gap between any token's two nearest codes is
+    >= 4.4e-6, far above the port-vs-JAX distance error ~1e-7), and the
+    port's trainer resumed from its checkpoint."""
+    jc, tc = configs(tmp_path, "vq", batch_size=3, **over)
+    x = dev_images()
+    jtrainer = JTrainer(jc, jdata.ArrayDataset(x), jdata.ArrayDataset(x), jlogger, JHolder(1),
+                        run_name="j")
+    variables = {"params": jtrainer.state.vae_params, "codebook": jtrainer.state.codebook}
+    z = np.asarray(jtrainer.vae.apply(variables, jnormalize(x), method=lambda m, x: m.encoder(x)))
+    emb = z.reshape(-1, 3)[np.random.default_rng(9).choice(8 * 64, 16, replace=False)]
+    inner = {**jtrainer.state.codebook["codebook"], "embeddings": jnp.asarray(emb)}
+    jtrainer.state = jtrainer.state.replace(codebook={"codebook": inner})
+    trainer = VAETrainer(tc, tdata.ArrayDataset(x), tdata.ArrayDataset(x), tlogger, MetricHolder(1),
+                         checkpoint=jtrainer.save(0), run_name="t", device="cpu")
+    return jtrainer, trainer
+
+
+def test_dev_perplexity_over_a_padded_tail_matches_jax(tmp_path):
+    """8 dev images at batch 3, VQ, the same weights and codebook: the
+    logged dev/perplexity (each batch's perplexity over its valid rows,
+    weighted by their number) and the dev losses at rtol 2e-4.  The tail's
+    pad row, and the weighting, each move the value by more than that."""
+    logged = {"j": {}, "t": {}}
+
+    class JRecorder(JLogger):
+        def log_metric(self, name, val, step):
+            logged["j"][name] = val
+
+    class Recorder(BasicLogger):
+        def log_metric(self, name, val, step):
+            logged["t"][name] = val
+
+    jtrainer, trainer = vq_trainers(tmp_path, JRecorder(str(tmp_path), "j", True, 1),
+                                    Recorder(str(tmp_path), "t", True, 1))
+    jtrainer._evaluate(0, jax.random.key(3))
+    trainer._evaluate(0, seed=3)
+    assert set(logged["t"]) == set(logged["j"]) == {"dev/recon_loss", "dev/percept_loss",
+                                                    "dev/perplexity"}
+    for name, ref in logged["j"].items():
+        assert logged["t"][name] == pytest.approx(ref, rel=2e-4, abs=1e-7), name
+    batches = list(tdata.eval_batches(trainer.dev_set, 3))
+    perps = [float(trainer.eval_step(trainer.state.vae, x, None, n)[3]) for n, (x,) in batches]
+    n_tail, (x_tail,) = batches[-1]
+    all_rows = float(trainer.eval_step(trainer.state.vae, x_tail, None)[3])
+    assert n_tail == 2 and abs(all_rows / perps[-1] - 1) > 1e-3
+    assert abs(np.mean(perps) / logged["t"]["dev/perplexity"] - 1) > 1e-3
+
+
+def test_reconstruction_figure_matches_jax_eval_step(tmp_path, monkeypatch):
+    """Every `log_imgs_freq` steps of `train`, before the step, the first 4
+    images of the plot set and their reconstructions through the eval
+    path: those against JAX's eval step on the same weights (exact and at
+    2e-4), and the figure written as plots/{step}_recon.png."""
+    from image_diffusion_torch.training import vae_trainer
+
+    plot = tmp_path / "plot.npy"
+    np.save(plot, dev_images()[2:8])
+    drawn = []
+    monkeypatch.setattr(vae_trainer, "plot_reconstructions",
+                        lambda a, b: drawn.append((a, b)) or plot_reconstructions(a, b))
+    jtrainer, trainer = vq_trainers(tmp_path, JLogger(str(tmp_path), "j", True, 1),
+                                    BasicLogger(str(tmp_path), "t", True, 1), plot_set=str(plot),
+                                    log_imgs_freq=3, epochs=2)
+    x = dev_images()[2:6]
+    ref_hat = jtrainer.eval_step(jtrainer.state.vae_params, jtrainer.state.codebook, x,
+                                 jax.random.key(0), 4)[0]
+    trainer.train()  # epoch 1 of 2: steps 2 and 3, the figure before step 2, the first
+    assert len(drawn) == 1 and (tmp_path / "t" / "plots" / "2_recon.png").exists()
+    np.testing.assert_array_equal(drawn[0][0], np.asarray(jnormalize(x)))
+    np.testing.assert_allclose(drawn[0][1], np.asarray(ref_hat), atol=2e-4)
+
+
+def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """A grad_accum that does not divide the batch, a plot set without
+    matplotlib, and the default device without a card raise; VQ and
+    grad_accum configs construct, the codebook outside the VAE's Adam."""
     data = tdata.ArrayDataset(images())
     logger = BasicLogger(str(tmp_path), "r", True, 1)
     with pytest.raises(ValueError, match="grad_accum"):
-        VAETrainer(tc, data, None, logger, MetricHolder(1), device="cpu")
-    vq = tcfg.VAEConfig(tcfg.VAEArch(**{**ARCH, "bottleneck": "vq", "codebook_size": 16,
-                                        "codebook_beta": 0.25, "codebook_gamma": 0.99}),
-                        tcfg.VAETrainConfig(**TRAIN))
-    with pytest.raises(ValueError, match="VQ training"):
-        VAETrainer(vq, data, None, logger, MetricHolder(1), device="cpu")
+        VAETrainer(configs(tmp_path, grad_accum=3)[1], data, None, logger, MetricHolder(1),
+                   device="cpu")
+    for tc in (configs(tmp_path, grad_accum=2)[1], configs(tmp_path, "vq", grad_accum=2)[1]):
+        st = VAETrainer(tc, data, None, logger, MetricHolder(1), device="cpu").state
+        assert len(st.vae_opt.params) == len(list(st.vae.parameters()))
+    codebook = {id(b) for b in st.vae.codebook.buffers()}
+    assert len(codebook) == 3 and not codebook & {id(p) for p in st.vae_opt.params}
+    np.save(tmp_path / "plot.npy", images())
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
+        VAETrainer(configs(tmp_path, plot_set=str(tmp_path / "plot.npy"))[1], data, None, logger,
+                   MetricHolder(1), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             VAETrainer(configs(tmp_path)[1], data, None, logger, MetricHolder(1))
 
 
-def _write_config(tmp_path, **over):
-    lines = [f"{k}: {list(v) if isinstance(v, tuple) else v}" for k, v in ARCH.items()]
+def _write_config(tmp_path, arch=ARCH, **over):
+    lines = [f"{k}: {list(v) if isinstance(v, tuple) else v}" for k, v in arch.items()]
     train = {**TRAIN, "precision": "fp16", "epochs": 2, "log_interval": 2,
              "train_set": tmp_path / "train.npy", "dev_set": tmp_path / "dev.npy",
              "checkpoints_dir": tmp_path / "ck", "logs_dir": tmp_path / "logs", **over}
@@ -512,3 +718,35 @@ def test_cli_needs_lpips_or_the_acknowledgment(tmp_path):
         _main(tmp_path, "--allow-no-lpips")
     rows = (tmp_path / "logs" / "cli_metrics.csv").read_text().splitlines()
     assert any(",vae/percept_loss,0.0" in r for r in rows)
+
+
+def test_cli_trains_the_vq_config_with_accumulation(tmp_path):
+    """The VQ keys of configs/vae-vq-32x32.yaml at the tiny width, at
+    grad_accum 2 (micro-batches of 2), with a plot set, through the CLI's
+    `main`: 2 epochs of 2 steps with the perplexity at each flush, the dev
+    perplexity, a figure every 2 steps, the codebook in each checkpoint and
+    moved by training, and a resume that restores it bit for bit."""
+    from image_diffusion_torch.scripts.train_vae import main
+
+    np.save(tmp_path / "plot.npy", images(n=4, seed=9))
+    config = _write_config(tmp_path, arch={**ARCH, **VQ}, grad_accum=2, log_imgs_freq=2,
+                           plot_set=tmp_path / "plot.npy")
+    args = ["--config", config, "--experiment-name", "vq", "--no-mlflow", "--device", "cpu",
+            "--allow-no-lpips"]
+    with pytest.warns(UserWarning, match="ZERO"):
+        trainer = main(args)
+    rows = [r.split(",") for r in (tmp_path / "logs" / "vq_metrics.csv").read_text().splitlines()[1:]]
+    names = [name for _, name, _ in rows]
+    assert names.count("vae/perplexity") == 2 and names.count("dev/perplexity") == 2
+    assert all(np.isfinite(float(v)) for _, _, v in rows)
+    assert sorted(os.listdir(tmp_path / "logs" / "vq" / "plots")) == ["1_recon.png", "3_recon.png"]
+    ck = str(tmp_path / "ck" / "vq" / "vae-epoch-01.ckpt")
+    trees, _ = jckpt.load_checkpoint(ck)
+    jax.tree.map(np.testing.assert_array_equal, trees["codebook"], codebook_tree(trainer.state.vae))
+    init = build_vae(trainer.cfg.arch, torch.float32, "cpu", torch.Generator().manual_seed(0))
+    assert not torch.equal(init.codebook.embeddings.weight, trainer.state.vae.codebook.embeddings.weight)
+    with pytest.warns(UserWarning, match="ZERO"):
+        resumed = main(args + ["--checkpoint", ck])
+    assert resumed.curr_epoch == 2 and resumed.state.step == 4
+    for a, b in zip(resumed.state.vae.codebook.buffers(), trainer.state.vae.codebook.buffers()):
+        assert torch.equal(a, b)
