@@ -18,7 +18,7 @@ Phases, one status line each; any failure exits non-zero:
   3b. the backward kernels against their plain version at the same site
      shapes at the training batch (48, bf16, random dO), per operand, both
      called alone (the wrapper launches the forward first) and through
-     `PackedAttention` with the forward's saved output and row sums, which
+     the forward operator's gradient with its saved output and row sums, which
      is what training runs, with the same times (library: SDPA's backward
      through autograd);
   3c. the flash kernel against its plain version at the VAE's attention
@@ -72,7 +72,26 @@ Phases, one status line each; any failure exits non-zero:
      through `train_vae` as in phase 7, the perplexity at each flush and
      on the dev set, a resume that restores the codebook, a profile; (e)
      one step at grad_accum 2 against grad_accum 1 from one state and
-     batch: gradient, codebook, peak memory, ms/step and flash launches.
+     batch: gradient, codebook, peak memory, ms/step and flash launches;
+  10. the UNet trainer's remaining features at full width: (a) one train
+     step at batch 48 of the shipped config under each remat policy (none,
+     dots, full) from one deep-copied state and batch: the gradient against
+     none's, peak memory above the held state, median ms/step over 5 steps,
+     device busy, and packed launches a step (14 + 14 under every policy);
+     (b) 10 steps through `train_diffusion --remat dots`; (c) the trainer's
+     preview (`Preview`, dpm-20 at scale 3) from phase 7's VAE checkpoint
+     and phase 8's EMA weights against `pipe.sample` of phase 8's --ema
+     bundle, bit for bit, with its seconds and launches; (d) `--debug-nans`
+     raising FloatingPointError at a NaN in one latent;
+  11. FID: (a) random InceptionV3 weights in torchvision's layout written to
+     a file; (b) the card's features against the CPU's in fp32 on 8 of
+     phase 7's images (and, not held, with TF32 on); (c) feature
+     throughput at chunks of 256; (d) one epoch of phase 7's config through
+     `train_vae --fid-weights`: dev/FID against its recomputation from the
+     same evaluation outputs, and what FID adds to the dev evaluation; (e)
+     `eval_fid` on phase 8's bundle against phase 7's images (270 images,
+     ddim-50, batch 64): the FID against the port's FID over `pipe.sample`
+     with the same seeds, img/s, launches a DDIM step.
 Then a JSON line of kernel records, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
@@ -142,6 +161,17 @@ EMA_REL = 1e-4
 # as fp16) against the same rows encoded on the CPU at fp32: relative L2,
 # of the same kind as UNET_REL_L2 through the encoder's ~40 layers
 ENCODE_REL_L2 = 5e-2
+# phase 10: a remat policy's clipped gradient against none's from one state
+# and batch, max|diff| / max|none|.  The recomputed GroupNorm/SiLU chains
+# are the same kernels on the same inputs, so the gradients are bit-equal
+# unless a backward sums in another order (none against none is printed)
+REMAT_GRAD_REL = 1e-3
+# phase 11: the FID Inception's features, card vs CPU in fp32 with TF32 off,
+# max|diff| / max|CPU|, through ~95 fp32 convolutions summed in other orders
+INCEPTION_REL = 1e-4
+# phase 11: a FID against its recomputation from the same images and
+# features (the same float64 sums in the same order): |diff| / FID
+FID_REL = 1e-6
 # csrc/<name>.cu of every kernel the paths run
 KERNEL_SOURCES = ["packed_attention", "packed_attention_bwd", "flash_attention"]
 
@@ -286,7 +316,7 @@ def phase_kernels(torch, F, attn, clock_hz):
 def phase_bwd_kernels(torch, F, attn, clock_hz):
     """Phase 3b: the backward kernels vs their plain version and SDPA's
     backward per site, at the training batch: called alone, and through
-    `PackedAttention` with the forward's saved output and row sums."""
+    the forward operator's gradient with its saved output and row sums."""
     sites = []
     for N, C, h in SITES:
         d = C // h
@@ -316,7 +346,7 @@ def phase_bwd_kernels(torch, F, attn, clock_hz):
                  for t in (q, k, v)]
         lib_out = F.scaled_dot_product_attention(*heads)
         do_heads = do.view(B_TRAIN, N, h, d).transpose(1, 2).contiguous()
-        # what `PackedAttention.backward` calls: the kernels on the saved statistics
+        # what the forward operator's gradient calls: the kernels on the saved statistics
         ms = cuda_ms(lambda: attn.packed_attention_bwd(q, k, v, do, h, out, sums), iters=20)
         by_kernel = device_profile(torch, lambda: attn.packed_attention_bwd(q, k, v, do, h, out, sums),
                                    iters=5)[0]
@@ -346,14 +376,14 @@ def phase_bwd_kernels(torch, F, attn, clock_hz):
             + " ".join(f"{n} {errs[n]:.3e}" for n in errs) + "; tolerance ratio "
             + " ".join(f"{n} {ratios[n]:.3f}" for n in ratios) + "; max|err|/max|plain| "
             + " ".join(f"{n} {rels[n]:.3e}" for n in rels) + f" (tolerance {BWD_REL_MAX})"
-            + f"; alone equals through PackedAttention bit for bit: {same}; kernel {ms:.4f} ms "
+            + f"; alone equals through the operator's gradient bit for bit: {same}; kernel {ms:.4f} ms "
             f"with the forward's statistics ({dev_ms:.4f} ms on the device: dq "
             f"{dev_ms - dkdv_dev_ms:.4f}, dk/dv {dkdv_dev_ms:.4f}), {alone_ms:.4f} ms "
             f"alone, plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms ({lib_dev_ms:.4f} ms on the "
             f"device), bound {bound_ms:.4f} ms ({site['bound_by']}), "
             f"exponentials {site['exp_ms']:.4f} ms")
         if launched != (1, 1):
-            raise AssertionError(f"PackedAttention launched {launched} forward and backward "
+            raise AssertionError(f"the packed operators launched {launched} forward and backward "
                                  f"kernels at N={N} C={C}, expected one each")
         if not (same and max(ratios.values()) <= 1.0 and max(rels.values()) < BWD_REL_MAX):
             raise AssertionError(f"backward kernel disagrees with its plain version at N={N} C={C}")
@@ -463,6 +493,20 @@ def _override(text: str, values: dict) -> str:
     return "\n".join(lines) + "\n"
 
 
+def _diffusion_config(tmp, name, latents, labels):
+    """The shipped UNet config with the data paths, `epochs: 1` and
+    `log_interval: 5` overridden, written to `tmp`."""
+    with open(CONFIG) as f:
+        text = _override(f.read(), {
+            "train_set": latents, "train_labels": labels,
+            "checkpoints_dir": os.path.join(tmp, "ckpt"), "logs_dir": os.path.join(tmp, "logs"),
+            "epochs": 1, "log_interval": 5})
+    path = os.path.join(tmp, f"{name}.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
 def phase_train(torch, np, attn, unet_state):
     """Phase 6: training on the card."""
     import csv
@@ -512,15 +556,8 @@ def phase_train(torch, np, attn, unet_state):
         np.save(os.path.join(tmp, "latents.npy"),
                 rng.standard_normal((n, 32, 32, 6), dtype=np.float32).astype(np.float16))
         np.save(os.path.join(tmp, "labels.npy"), rng.integers(0, 3, n).astype(np.uint8))
-        with open(CONFIG) as f:
-            text = _override(f.read(), {
-                "train_set": os.path.join(tmp, "latents.npy"),
-                "train_labels": os.path.join(tmp, "labels.npy"),
-                "checkpoints_dir": os.path.join(tmp, "ckpt"), "logs_dir": os.path.join(tmp, "logs"),
-                "epochs": 1, "log_interval": 5})
-        config = os.path.join(tmp, "config.yaml")
-        with open(config, "w") as f:
-            f.write(text)
+        config = _diffusion_config(tmp, "config", os.path.join(tmp, "latents.npy"),
+                                   os.path.join(tmp, "labels.npy"))
         args = ["--config", config, "--experiment-name", "smoke", "--no-mlflow"]
         attn.packed_attention.launches = attn.packed_attention_bwd.launches = 0
         torch.cuda.synchronize()
@@ -754,6 +791,22 @@ def phase_vae_train(torch, np, attn, tmp):
     return dict(run, grad_rel_l2=errs, images=os.path.join(tmp, "train.npy"))
 
 
+def _stage1_config(tmp, config_path, run):
+    """The stage-1 config `config_path` with phase 7's files in `tmp` (no
+    plot_set file), `epochs: 1`, `log_interval: 5` and `disc_start: 10`
+    overridden, written to `tmp`."""
+    with open(config_path) as f:
+        text = _override(f.read(), {
+            "train_set": os.path.join(tmp, "train.npy"), "dev_set": os.path.join(tmp, "dev.npy"),
+            "plot_set": os.path.join(tmp, "plot.npy"),
+            "checkpoints_dir": os.path.join(tmp, "ckpt"), "logs_dir": os.path.join(tmp, "logs"),
+            "epochs": 1, "log_interval": 5, "disc_start": VAE_DISC_START})
+    path = os.path.join(tmp, f"{run}.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
 def _stage1_cli_run(torch, np, attn, tmp, phase, config_path, run, lpips_path):
     """25 steps of the stage-1 config `config_path` through
     `image_diffusion_torch.scripts.train_vae.main` on phase 7's images in
@@ -769,15 +822,7 @@ def _stage1_cli_run(torch, np, attn, tmp, phase, config_path, run, lpips_path):
     cfg = VAEConfig.from_yaml(config_path)
     is_vq = cfg.arch.bottleneck == "vq"
     n_dev = len(np.load(os.path.join(tmp, "dev.npy"), mmap_mode="r"))
-    with open(config_path) as f:
-        text = _override(f.read(), {
-            "train_set": os.path.join(tmp, "train.npy"), "dev_set": os.path.join(tmp, "dev.npy"),
-            "plot_set": os.path.join(tmp, "plot.npy"),
-            "checkpoints_dir": os.path.join(tmp, "ckpt"), "logs_dir": os.path.join(tmp, "logs"),
-            "epochs": 1, "log_interval": 5, "disc_start": VAE_DISC_START})
-    config = os.path.join(tmp, f"{run}.yaml")
-    with open(config, "w") as f:
-        f.write(text)
+    config = _stage1_config(tmp, config_path, run)
     args = ["--config", config, "--experiment-name", run, "--no-mlflow",
             "--lpips-weights", lpips_path]
     attn.flash_attention.launches = 0
@@ -1117,15 +1162,10 @@ def phase_clis(torch, np, attn, vae_ckpt: str, images_path: str, tmp: str):
         raise AssertionError("prepare_dataset's latents on the card disagree with the CPU")
 
     # 2. train_diffusion on exactly those latents and labels, with an EMA
-    with open(CONFIG) as f:
-        text = _override(f.read(), {
-            "train_set": os.path.join(lat_dir, "diffusion_dataset.npy"),
-            "train_labels": os.path.join(lat_dir, "diffusion_labels.npy"),
-            "checkpoints_dir": os.path.join(tmp, "ckpt"), "logs_dir": os.path.join(tmp, "logs"),
-            "epochs": 1, "log_interval": 5}) + "ema_decay: 0.999\n"
-    config = os.path.join(tmp, "diffusion.yaml")
-    with open(config, "w") as f:
-        f.write(text)
+    config = _diffusion_config(tmp, "diffusion", os.path.join(lat_dir, "diffusion_dataset.npy"),
+                               os.path.join(lat_dir, "diffusion_labels.npy"))
+    with open(config, "a") as f:
+        f.write("ema_decay: 0.999\n")
     steps = n // B_TRAIN
     attn.packed_attention.launches = attn.packed_attention_bwd.launches = 0
     torch.cuda.synchronize()
@@ -1209,7 +1249,331 @@ def phase_clis(torch, np, attn, vae_ckpt: str, images_path: str, tmp: str):
             raise AssertionError("sample_grid wrote an empty figure")
     log(f"phase 8 sample_grid figure: {figure}")
     return dict(prep_s=prep_s, encode_s=encode_s, images=n, prep_flash=prep_flash,
-                encode_rel_l2=enc_err, train_launches=train_launches, grids=out)
+                encode_rel_l2=enc_err, train_launches=train_launches, grids=out, bundle=bundle,
+                unet_ckpt=unet_ckpt)
+
+
+def phase_remat_preview(torch, np, attn, tmp, vae_ckpt, clis):
+    """Phase 10: remat at full width, the trainer's preview, --debug-nans."""
+    import copy
+    import csv
+    import statistics
+
+    from image_diffusion_torch.compat.from_jax import unet_state_dict
+    from image_diffusion_torch.core import checkpoint as ckpt
+    from image_diffusion_torch.core.config import DiffusionConfig
+    from image_diffusion_torch.models import build_unet
+    from image_diffusion_torch.ops import schedule as S
+    from image_diffusion_torch.pipelines import DiffusionPipeline
+    from image_diffusion_torch.scripts import train_diffusion
+    from image_diffusion_torch.training.diffusion_trainer import (Optimizer, Preview, TrainState,
+                                                                  draw, make_train_step)
+
+    cfg = DiffusionConfig.from_yaml(CONFIG)
+    tc, sc = cfg.train, cfg.schedule
+
+    # (a) one deep-copied state and one batch of 48, one step under each policy
+    unet = build_unet(cfg.arch, tc.compute_dtype, "cuda", torch.Generator().manual_seed(0),
+                      param_dtype=torch.float32).train()
+    base = TrainState(unet, Optimizer(unet.parameters(), tc.learning_rate, tc.warmup_steps,
+                                      tc.clip_grad))
+    sched = S.make_schedule(sc.num_steps, sc.beta_start, sc.beta_end, sc.noise_type, device="cuda")
+    step = make_train_step(sched, tc.cond_drop_prob, reparametrize=True)
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((B_TRAIN, 32, 32, 6), dtype=np.float32)).cuda()
+    c = torch.from_numpy(rng.integers(0, 3, B_TRAIN)).cuda()
+    draws = draw(torch.Generator(device="cuda").manual_seed(10), x.shape, sc.num_steps, True)
+    step(base, x, c, draws)  # the Adam moments exist: the held state is a trained one's
+    torch.cuda.synchronize()
+
+    def one_step(policy):
+        st = copy.deepcopy(base)
+        st.unet.remat = policy
+        torch.cuda.synchronize()
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+        attn.packed_attention.launches = attn.packed_attention_bwd.launches = 0
+        step(st, x, c, draws)
+        torch.cuda.synchronize()
+        out = dict(base_mb=base_mb, peak_mb=torch.cuda.max_memory_allocated() / 2**20,
+                   launches=(attn.packed_attention.launches, attn.packed_attention_bwd.launches),
+                   grad=torch.cat([p.grad.flatten() for p in st.optimizer.params]).float().cpu())
+        return st, out
+
+    remat = {}
+    for name, policy in (("none", None), ("dots", "dots"), ("full", "full")):
+        st, r = one_step(policy)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(st, x, c, draws)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        prof, kernels, wall = device_profile(torch, lambda: step(st, x, c, draws), iters=3)
+        r.update(ms=statistics.median(times), busy_ms=sum(prof.values()), wall_ms=wall,
+                 kernels=kernels)
+        remat[name] = r
+        del st
+    _, again = one_step(None)  # none twice: the floor of the card's own rounding
+    ref = remat["none"]["grad"]
+    floor = float((again["grad"] - ref).abs().max() / ref.abs().max())
+    for name, r in remat.items():
+        grad = r.pop("grad")
+        r["grad_rel_max"] = float((grad - ref).abs().max() / ref.abs().max())
+        r["bit_equal"] = bool(torch.equal(grad, ref))
+        log(f"phase 10 remat {name}: batch {B_TRAIN}, one step from one state, the clipped gradient "
+            f"max|diff|/max|none| {r['grad_rel_max']:.3e} (bit equal {r['bit_equal']}; tolerance "
+            f"{REMAT_GRAD_REL}; none against none {floor:.3e}); peak memory {r['peak_mb']:.0f} MiB, "
+            f"{r['peak_mb'] - r['base_mb']:.0f} MiB above the {r['base_mb']:.0f} MiB held; "
+            f"{r['ms']:.2f} ms/step (median of 5), device busy {r['busy_ms']:.3f} ms of "
+            f"{r['wall_ms']:.3f} ms (idle share {idle_share(r['busy_ms'], r['wall_ms'])}), "
+            f"{r['kernels']:.0f} kernels; packed launches a step {r['launches'][0]} forward, "
+            f"{r['launches'][1]} backward")
+    del base, unet, again
+    torch.cuda.empty_cache()
+    if any(r["launches"] != (14, 14) for r in remat.values()):
+        raise AssertionError("remat: packed launches other than 14 + 14 a step")
+    if max(r["grad_rel_max"] for r in remat.values()) > REMAT_GRAD_REL:
+        raise AssertionError("remat: the gradient under a policy differs from none's")
+
+    # (b) 10 steps through the CLI with --remat dots
+    lat, lab = os.path.join(tmp, "remat_latents.npy"), os.path.join(tmp, "remat_labels.npy")
+    np.save(lat, rng.standard_normal((10 * B_TRAIN, 32, 32, 6), dtype=np.float32).astype(np.float16))
+    np.save(lab, rng.integers(0, 3, 10 * B_TRAIN).astype(np.uint8))
+    config = _diffusion_config(tmp, "remat", lat, lab)
+    attn.packed_attention.launches = attn.packed_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    trainer = train_diffusion.main(["--config", config, "--experiment-name", "remat",
+                                    "--no-mlflow", "--remat", "dots"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_launches = (attn.packed_attention.launches, attn.packed_attention_bwd.launches)
+    with open(os.path.join(tmp, "logs", "remat_metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["value"]) for r in rows if r["name"] == "unet/loss"]
+    sps = [float(r["value"]) for r in rows if r["name"] == "unet/samples_per_sec"]
+    cli_step_ms = B_TRAIN / sps[-1] * 1e3  # the second flush: steps 6-10
+    log(f"phase 10 train_diffusion --remat dots: {trainer.state.step} steps in {cli_s:.1f} s "
+        f"(set-up and checkpoint included), steps 6-10 {cli_step_ms:.2f} ms/step; "
+        f"loss at the flushes " + " ".join(f"{v:.5f}" for v in losses)
+        + f"; kernel launches {cli_launches[0]} forward, {cli_launches[1]} backward")
+    if not (trainer.unet.remat == "dots" and trainer.state.step == 10 and len(losses) == 2
+            and np.isfinite(losses).all() and cli_launches == (140, 140)):
+        raise AssertionError("train_diffusion --remat dots: wrong policy, steps, launches or "
+                             "non-finite losses")
+    del trainer
+
+    # (c) the trainer's preview, sampled from phase 8's VAE and EMA weights,
+    # against pipe.sample of phase 8's bundle (make_bundle --ema of the same)
+    trees, _ = ckpt.load_checkpoint(clis["unet_ckpt"])
+    ema = unet_state_dict(trees["unet_ema"])
+    preview = Preview(vae_ckpt, cfg, ema, steps=20, scale=3.0, device="cuda")
+    attn.packed_attention.launches = attn.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    imgs = preview.images(ema, seed=0)
+    torch.cuda.synchronize()
+    preview_s = time.perf_counter() - t0
+    preview_launches = (attn.packed_attention.launches, attn.flash_attention.launches)
+    pipe = DiffusionPipeline.from_checkpoint(clis["bundle"])
+    ref = pipe.sample([3.0], seed=0, sampler="dpm", num_inference_steps=20)
+    same = bool(torch.equal(imgs, ref))
+    log(f"phase 10 preview: {tuple(imgs.shape)} {imgs.dtype} from phase 8's VAE checkpoint and EMA "
+        f"weights in {preview_s:.3f} s; {preview_launches[0]} packed and {preview_launches[1]} flash "
+        f"launches; equal to pipe.sample of the --ema bundle with the same scale, seed and "
+        f"steps bit for bit: {same}")
+    if not (same and imgs.shape == (3, 128, 128, 3) and preview_launches == (280, 1)):
+        raise AssertionError("preview: images differ from pipe.sample's, or launches other than "
+                             "280 packed and 1 flash")
+    del preview, pipe, imgs, ref, trees, ema
+
+    # (d) --debug-nans: a NaN in one latent of 2 batches
+    bad = rng.standard_normal((2 * B_TRAIN, 32, 32, 6), dtype=np.float32).astype(np.float16)
+    bad[7, 3, 3, 0] = np.nan
+    np.save(lat, bad)
+    np.save(lab, rng.integers(0, 3, 2 * B_TRAIN).astype(np.uint8))
+    try:
+        train_diffusion.main(["--config", config, "--experiment-name", "nan", "--no-mlflow",
+                              "--debug-nans"])
+    except FloatingPointError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("--debug-nans: a NaN in the batch raised no FloatingPointError")
+    log(f"phase 10 --debug-nans: a NaN in one latent of 2 batches raised FloatingPointError: "
+        f"{raised}")
+    torch.cuda.empty_cache()
+    return dict(remat=remat, remat_grad_floor=floor, cli_launches=cli_launches,
+                cli_step_ms=cli_step_ms, preview_s=preview_s,
+                preview_launches=preview_launches, debug_nans=raised)
+
+
+def _random_inception_file(torch, np, path: str, seed: int = 0) -> None:
+    """Random FID Inception weights in torchvision's layout: He-scaled convs,
+    random BatchNorm affines and running statistics (tests/torch_oracles.py's
+    recipe), saved as a torch state dict."""
+    from image_diffusion_torch.models.inception import InceptionV3Features
+
+    rng = np.random.default_rng(seed)
+    model = InceptionV3Features()
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+                w = rng.normal(0, np.sqrt(2.0 / fan_in), tuple(mod.weight.shape))
+                mod.weight.copy_(torch.from_numpy(w.astype(np.float32)))
+            elif isinstance(mod, torch.nn.BatchNorm2d):
+                n = mod.num_features
+                for t, (lo, hi) in ((mod.weight, (0.5, 1.5)), (mod.bias, (-0.1, 0.1)),
+                                    (mod.running_mean, (-0.2, 0.2)), (mod.running_var, (0.5, 1.5))):
+                    t.copy_(torch.from_numpy(rng.uniform(lo, hi, (n,)).astype(np.float32)))
+    torch.save(model.state_dict(), path)
+
+
+def phase_fid(torch, np, attn, tmp, vae_train, clis):
+    """Phase 11: the FID Inception, per-epoch dev/FID, eval_fid."""
+    import csv
+    from contextlib import nullcontext
+
+    import image_diffusion_torch.models.inception as inception
+    from image_diffusion_torch.core.config import VAEConfig
+    from image_diffusion_torch.core.rng import epoch_seed, eval_generator, root_seed
+    from image_diffusion_torch.models.fid import FID
+    from image_diffusion_torch.pipelines import DiffusionPipeline
+    from image_diffusion_torch.scripts import eval_fid, train_vae
+    from image_diffusion_torch.training.data import ArrayDataset, eval_batches
+    from image_diffusion_torch.training.vae_trainer import _latent_shape, normalize_batch
+
+    # (a) random weights
+    weights = os.path.join(tmp, "inception.pth")
+    t0 = time.perf_counter()
+    _random_inception_file(torch, np, weights)
+    model = inception.load_inception(weights)
+    cpu_model = inception.load_inception(weights, "cpu")
+    log(f"phase 11 inception: random torchvision-layout weights written and loaded in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{sum(p.numel() for p in model.parameters()):,} parameters")
+
+    # (b) card vs CPU in fp32 on 8 of phase 7's images; TF32 on, for the record
+    images = np.load(vae_train["images"], mmap_mode="r")
+    x8 = torch.from_numpy(np.asarray(images[:8], np.float32) / 255.0)
+    ref = cpu_model(x8)
+    got = model(x8.cuda()).cpu()
+    err = float((got - ref).abs().max() / ref.abs().max())
+    saved, inception._no_tf32 = inception._no_tf32, nullcontext
+    tf32_saved, torch.backends.cudnn.allow_tf32 = torch.backends.cudnn.allow_tf32, True
+    try:
+        tf32 = model(x8.cuda()).cpu()
+    finally:
+        inception._no_tf32, torch.backends.cudnn.allow_tf32 = saved, tf32_saved
+    tf32_err = float((tf32 - ref).abs().max() / ref.abs().max())
+    log(f"phase 11 inception features: 8 images of 128x128, card vs CPU in fp32 max|diff|/max "
+        f"{err:.3e} (tolerance {INCEPTION_REL}); with TF32 on, not held, {tf32_err:.3e}")
+    if not (got.shape == (8, 2048) and torch.isfinite(got).all() and err <= INCEPTION_REL):
+        raise AssertionError("inception features on the card disagree with the CPU")
+    del cpu_model
+
+    # (c) feature throughput at chunks of 256
+    x256 = torch.from_numpy(np.asarray(images[:256], np.float32) / 255.0).cuda()
+    feat_ms = cuda_ms(lambda: model(x256), iters=3, warmup=1)
+    log(f"phase 11 inception throughput: chunks of 256 images of 128x128 (resized to 299): "
+        f"{feat_ms:.1f} ms a chunk, {256 / feat_ms * 1e3:.1f} images/s")
+    del x256
+
+    # (d) one epoch of phase 7's config through train_vae with --fid-weights
+    config = _stage1_config(tmp, VAE_CONFIG, "fid")
+    attn.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = train_vae.main(["--config", config, "--experiment-name", "fid", "--no-mlflow",
+                              "--lpips-weights", os.path.join(tmp, "lpips.pth"),
+                              "--fid-weights", weights])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_flash = attn.flash_attention.launches
+    with open(os.path.join(tmp, "logs", "fid_metrics.csv")) as f:
+        logged = {r["name"]: float(r["value"]) for r in csv.DictReader(f)
+                  if r["name"].startswith("dev/")}
+    # the same evaluation outputs again: the trained VAE on the dev set with
+    # the epoch's eval draws, features by a fresh model, a fresh FID
+    cfg = VAEConfig.from_yaml(config)
+    dev = ArrayDataset(np.load(os.path.join(tmp, "dev.npy")))
+    seed = epoch_seed(root_seed(cfg.train.seed, offset=cfg.train.epochs), 0)
+
+    def evaluate(fid):
+        gen = eval_generator(seed, "cuda")
+        for n_valid, (xb,) in eval_batches(dev, cfg.train.batch_size, "cuda"):
+            noise = torch.randn((xb.shape[0], *_latent_shape(cfg, xb)), generator=gen, device="cuda")
+            x_hat = trainer.eval_step(trainer.state.vae, xb, noise, n_valid)[0]
+            if fid is not None:
+                fid.update_fake(((x_hat + 1.0) / 2.0)[:n_valid])
+                fid.update_real_once(((normalize_batch(xb) + 1.0) / 2.0)[:n_valid])
+        torch.cuda.synchronize()
+        if fid is None:
+            return None, 0.0
+        t0 = time.perf_counter()
+        return fid.compute(), time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    evaluate(None)
+    eval_s = time.perf_counter() - t0
+    fresh = FID(inception.load_inception(weights), 2048)
+    t0 = time.perf_counter()
+    again, distance_s = evaluate(fresh)
+    eval_fid_s = time.perf_counter() - t0
+    fid_err = abs(logged.get("dev/FID", float("nan")) - again) / abs(again)
+    n_dev = len(dev)
+    log(f"phase 11 train_vae --fid-weights: {trainer.state.step} steps and the dev evaluation in "
+        f"{run_s:.1f} s (set-up and checkpoint included); dev/FID "
+        f"{logged.get('dev/FID', float('nan')):.4f}, recomputed from the same evaluation outputs "
+        f"{again:.4f} (|diff|/FID {fid_err:.3e}, tolerance {FID_REL}); the dev evaluation of "
+        f"{n_dev} images {eval_s:.2f} s without FID, {eval_fid_s:.2f} s with (real and fake "
+        f"features, and the distance on the host: {distance_s:.2f} s); flash launches {run_flash}")
+    dev_batches = -(-n_dev // B_TRAIN)
+    if not (np.isfinite(logged.get("dev/FID", float("nan"))) and fid_err <= FID_REL
+            and run_flash == 2 * (VAE_TRAIN_STEPS + dev_batches)):
+        raise AssertionError("train_vae --fid-weights: dev/FID missing, non-finite or unequal to "
+                             "its recomputation, or flash launches other than 2 a step and a "
+                             "dev batch")
+    del trainer
+
+    # (e) eval_fid on phase 8's bundle against phase 7's images
+    args = eval_fid.parse_args([clis["bundle"], "--real", vae_train["images"], "--fid-weights",
+                                weights, "--num-images", "270", "--sampler", "ddim", "--steps",
+                                "50", "--batch", "64"])
+    attn.packed_attention.launches = attn.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    res = eval_fid.evaluate(args)
+    total_s = time.perf_counter() - t0
+    launches = (attn.packed_attention.launches, attn.flash_attention.launches)
+    # the port's FID over pipe.sample with the same seeds
+    fid = FID(inception.load_inception(weights), 2048)
+    pipe = DiffusionPipeline.from_checkpoint(clis["bundle"])
+    eval_fid.ingest_real(fid, vae_train["images"], args.max_real, "cuda")
+    per_call, done = args.batch // len(pipe.classes), 0
+    for seed in range(res["calls"]):
+        imgs = pipe.sample(args.cfg, num_images=per_call, seed=seed, sampler="ddim",
+                           num_inference_steps=50)
+        take = min(len(imgs), args.num_images - done)
+        fid.update_fake((imgs[:take] + 1.0) / 2.0)
+        done += take
+    ref_fid = fid.compute()
+    eval_err = abs(res["fid"] - ref_fid) / abs(ref_fid)
+    rate = res["images"] / res["seconds"]
+    log(f"phase 11 eval_fid: FID {res['fid']:.4f} over {res['images']} images ({res['calls']} "
+        f"calls of {per_call} a class at cfg {args.cfg}, ddim-50) against {res['n_real']} real; "
+        f"the port's FID over pipe.sample with the same seeds {ref_fid:.4f} (|diff|/FID "
+        f"{eval_err:.3e}, tolerance {FID_REL}); sampling {res['seconds']:.2f} s ({rate:.2f} img/s, "
+        f"the fake features included), {total_s:.2f} s in all; {launches[0]} packed launches "
+        f"({launches[0] / (50 * res['calls']):.0f} a DDIM step), {launches[1]} flash")
+    if not (np.isfinite(res["fid"]) and eval_err <= FID_REL and res["images"] == 270
+            and res["n_real"] == len(images) and launches == (14 * 50 * res["calls"], res["calls"])):
+        raise AssertionError("eval_fid: non-finite FID, unequal to pipe.sample's, or wrong counts")
+    return dict(inception_rel_err=err, inception_tf32_rel_err=tf32_err, feature_chunk_ms=feat_ms,
+                feature_imgs_per_s=256 / feat_ms * 1e3, vae_fid=logged["dev/FID"],
+                vae_fid_rel_diff=fid_err, vae_run_s=run_s, dev_eval_s=eval_s,
+                dev_eval_fid_s=eval_fid_s, fid_distance_s=distance_s, vae_flash=run_flash, eval_fid=res["fid"],
+                eval_fid_rel_diff=eval_err, eval_fid_imgs_per_s=rate, eval_fid_launches=launches)
 
 
 def main() -> int:
@@ -1403,6 +1767,13 @@ def main() -> int:
 
         # phase 9: stage-1 VQ training on the card
         vq = phase_vq_train(torch, np, attn, tmp)
+        torch.cuda.empty_cache()
+
+        # phase 10: remat, the trainer's preview and --debug-nans
+        rp = phase_remat_preview(torch, np, attn, tmp, vae_train["ckpt"], clis)
+
+        # phase 11: FID
+        fid = phase_fid(torch, np, attn, tmp, vae_train, clis)
 
     per_forward = {k: 2 * sum(s[k] for s in sites)
                    for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
@@ -1423,7 +1794,12 @@ def main() -> int:
                              "phase 6 train_diffusion": train["launches"]["forward"],
                              "phase 8 train_diffusion": clis["train_launches"][0],
                              "phase 8 sample_grid ddpm": clis["grids"]["ddpm"]["launches"][0],
-                             "phase 8 sample_grid dpm": clis["grids"]["dpm"]["launches"][0]},
+                             "phase 8 sample_grid dpm": clis["grids"]["dpm"]["launches"][0],
+                             **{f"phase 10 remat {k} step": r["launches"][0]
+                                for k, r in rp["remat"].items()},
+                             "phase 10 train_diffusion --remat dots": rp["cli_launches"][0],
+                             "phase 10 preview dpm-20": rp["preview_launches"][0],
+                             "phase 11 eval_fid ddim-50": fid["eval_fid_launches"][0]},
         "max_abs_err": max(s["max_abs_err"] for s in sites),
         **per_forward,
         "bound_by": "operations" if bound_ops > per_forward["bound_ms"] / 2 else "bytes",
@@ -1436,12 +1812,15 @@ def main() -> int:
         "replaces": "image_diffusion_tpu/ops/pallas/attention.py:288",
         "launches": train["launches"]["backward"],
         "launches_by_path": {"phase 6 train_diffusion": train["launches"]["backward"],
-                             "phase 8 train_diffusion": clis["train_launches"][1]},
+                             "phase 8 train_diffusion": clis["train_launches"][1],
+                             **{f"phase 10 remat {k} step": r["launches"][1]
+                                for k, r in rp["remat"].items()},
+                             "phase 10 train_diffusion --remat dots": rp["cli_launches"][1]},
         "max_abs_err": max(s["max_abs_err"] for s in bwd_sites),
         **per_backward,
         "bound_by": "operations" if bwd_bound_ops > per_backward["bound_ms"] / 2 else "bytes",
         "per": "one UNet backward at batch 48: 14 sites, two of each shape in sites; ms with "
-               "the forward's saved output and row sums, as PackedAttention calls it; alone_ms "
+               "the forward's saved output and row sums, as the operator's gradient calls it; alone_ms "
                "when the wrapper launches the forward first",
         "sites": bwd_sites,
     }, {
@@ -1460,7 +1839,10 @@ def main() -> int:
                                  vq["accum"]["accum_2"]["launches_active"],
                              "phase 8 prepare_dataset": clis["prep_flash"],
                              "phase 8 sample_grid ddpm": clis["grids"]["ddpm"]["launches"][1],
-                             "phase 8 sample_grid dpm": clis["grids"]["dpm"]["launches"][1]},
+                             "phase 8 sample_grid dpm": clis["grids"]["dpm"]["launches"][1],
+                             "phase 10 preview dpm-20": rp["preview_launches"][1],
+                             "phase 11 train_vae --fid-weights": fid["vae_flash"],
+                             "phase 11 eval_fid ddim-50": fid["eval_fid_launches"][1]},
         "max_abs_err": max(b["max_abs_err"] for b in flash_batches),
         **{k: next(b for b in flash_batches if b["B"] == B_TRAIN)[k]
            for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
@@ -1492,7 +1874,10 @@ def main() -> int:
         "vq_accum": vq["accum"], "vq_accum_grad_rel_l2": vq["accum_grad_rel_l2"],
         "vq_accum_codebook_rel_err": vq["accum_codebook_rel_err"],
         "vq_accum_code_flips": vq["accum_code_flips"],
-        "vq_accum_codebook_rel_err_own_codes": vq["accum_codebook_rel_err_own_codes"]}
+        "vq_accum_codebook_rel_err_own_codes": vq["accum_codebook_rel_err_own_codes"],
+        "remat": rp["remat"], "remat_grad_floor": rp["remat_grad_floor"],
+        "remat_cli_step_ms": rp["cli_step_ms"], "preview_s": rp["preview_s"],
+        "debug_nans": rp["debug_nans"], **{k: v for k, v in fid.items() if "launches" not in k}}
     log(json.dumps(record))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

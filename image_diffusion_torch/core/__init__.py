@@ -1,4 +1,5 @@
-"""Configuration, precision policy, devices, checkpoint I/O, figures and CLI plumbing."""
+"""Configuration, precision policy, devices, checkpoint I/O, figures, step timing
+and CLI plumbing."""
 
 from __future__ import annotations
 

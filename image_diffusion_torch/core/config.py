@@ -217,8 +217,8 @@ class DiffusionTrainConfig(TrainCommon):
 
     ae_type: str = "kl"
     cond_drop_prob: float = 0.15
-    # activation remat policy; the port runs "none" only (the trainer raises
-    # on anything else)
+    # activation remat policy of the train step: "none" | "dots" | "full"
+    # (models/unet.py; the gradients are unchanged)
     remat: str = "none"
     # EMA of the denoiser weights for sampling; None/0 disables
     ema_decay: float | None = None

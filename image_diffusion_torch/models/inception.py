@@ -1,0 +1,199 @@
+"""InceptionV3 pool3 features (N, 2048) for FID, the port's counterpart of
+the JAX package's `models/inception.py`.
+
+The FID-patched InceptionV3 of pytorch-fid and torchmetrics: torchvision's
+layer layout and key names, with the FID pooling (the branch_pool average
+pools of the A, C and E blocks exclude the padding, and Mixed_7c's
+branch_pool is a max pool), BatchNorm with eps 1e-3 and frozen statistics.
+So the `pt_inception-2015-12-05` weight file loads key for key (its `fc`
+and `AuxLogits` entries are ignored) and gives torchmetrics' features.
+
+Input: NHWC images in [0, 1] of any size, resized to 299x299 bilinearly
+(align_corners=False, no antialiasing, as pytorch-fid) and mapped to [-1,
+1].  The network runs in fp32 with TF32 off for the call: cuDNN runs fp32
+convolutions in TF32 by default, which keeps about three digits, and FID is
+a metric.  There is no download: the caller passes a local weight file, and
+a file that does not load raises (the JAX package logs and runs without
+FID).
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class BasicConv2d(nn.Module):
+    """conv (no bias), BatchNorm (eps 1e-3, eval statistics), ReLU."""
+
+    def __init__(self, cin: int, cout: int, **conv):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, bias=False, **conv)
+        self.bn = nn.BatchNorm2d(cout, eps=1e-3)
+
+    def forward(self, x):
+        return F.relu(self.bn(self.conv(x)))
+
+
+def _avg_pool(x):
+    # pytorch-fid's FIDInceptionA/C/E: count_include_pad=False
+    return F.avg_pool2d(x, 3, stride=1, padding=1, count_include_pad=False)
+
+
+class InceptionA(nn.Module):
+    def __init__(self, cin: int, pool_features: int):
+        super().__init__()
+        self.branch1x1 = BasicConv2d(cin, 64, kernel_size=1)
+        self.branch5x5_1 = BasicConv2d(cin, 48, kernel_size=1)
+        self.branch5x5_2 = BasicConv2d(48, 64, kernel_size=5, padding=2)
+        self.branch3x3dbl_1 = BasicConv2d(cin, 64, kernel_size=1)
+        self.branch3x3dbl_2 = BasicConv2d(64, 96, kernel_size=3, padding=1)
+        self.branch3x3dbl_3 = BasicConv2d(96, 96, kernel_size=3, padding=1)
+        self.branch_pool = BasicConv2d(cin, pool_features, kernel_size=1)
+
+    def forward(self, x):
+        b5 = self.branch5x5_2(self.branch5x5_1(x))
+        b3 = self.branch3x3dbl_3(self.branch3x3dbl_2(self.branch3x3dbl_1(x)))
+        return torch.cat([self.branch1x1(x), b5, b3, self.branch_pool(_avg_pool(x))], 1)
+
+
+class InceptionB(nn.Module):
+    def __init__(self, cin: int):
+        super().__init__()
+        self.branch3x3 = BasicConv2d(cin, 384, kernel_size=3, stride=2)
+        self.branch3x3dbl_1 = BasicConv2d(cin, 64, kernel_size=1)
+        self.branch3x3dbl_2 = BasicConv2d(64, 96, kernel_size=3, padding=1)
+        self.branch3x3dbl_3 = BasicConv2d(96, 96, kernel_size=3, stride=2)
+
+    def forward(self, x):
+        bd = self.branch3x3dbl_3(self.branch3x3dbl_2(self.branch3x3dbl_1(x)))
+        return torch.cat([self.branch3x3(x), bd, F.max_pool2d(x, 3, stride=2)], 1)
+
+
+class InceptionC(nn.Module):
+    def __init__(self, cin: int, c7: int):
+        super().__init__()
+        self.branch1x1 = BasicConv2d(cin, 192, kernel_size=1)
+        self.branch7x7_1 = BasicConv2d(cin, c7, kernel_size=1)
+        self.branch7x7_2 = BasicConv2d(c7, c7, kernel_size=(1, 7), padding=(0, 3))
+        self.branch7x7_3 = BasicConv2d(c7, 192, kernel_size=(7, 1), padding=(3, 0))
+        self.branch7x7dbl_1 = BasicConv2d(cin, c7, kernel_size=1)
+        self.branch7x7dbl_2 = BasicConv2d(c7, c7, kernel_size=(7, 1), padding=(3, 0))
+        self.branch7x7dbl_3 = BasicConv2d(c7, c7, kernel_size=(1, 7), padding=(0, 3))
+        self.branch7x7dbl_4 = BasicConv2d(c7, c7, kernel_size=(7, 1), padding=(3, 0))
+        self.branch7x7dbl_5 = BasicConv2d(c7, 192, kernel_size=(1, 7), padding=(0, 3))
+        self.branch_pool = BasicConv2d(cin, 192, kernel_size=1)
+
+    def forward(self, x):
+        b7 = self.branch7x7_3(self.branch7x7_2(self.branch7x7_1(x)))
+        bd = x
+        for i in range(1, 6):
+            bd = getattr(self, f"branch7x7dbl_{i}")(bd)
+        return torch.cat([self.branch1x1(x), b7, bd, self.branch_pool(_avg_pool(x))], 1)
+
+
+class InceptionD(nn.Module):
+    def __init__(self, cin: int):
+        super().__init__()
+        self.branch3x3_1 = BasicConv2d(cin, 192, kernel_size=1)
+        self.branch3x3_2 = BasicConv2d(192, 320, kernel_size=3, stride=2)
+        self.branch7x7x3_1 = BasicConv2d(cin, 192, kernel_size=1)
+        self.branch7x7x3_2 = BasicConv2d(192, 192, kernel_size=(1, 7), padding=(0, 3))
+        self.branch7x7x3_3 = BasicConv2d(192, 192, kernel_size=(7, 1), padding=(3, 0))
+        self.branch7x7x3_4 = BasicConv2d(192, 192, kernel_size=3, stride=2)
+
+    def forward(self, x):
+        b3 = self.branch3x3_2(self.branch3x3_1(x))
+        b7 = x
+        for i in range(1, 5):
+            b7 = getattr(self, f"branch7x7x3_{i}")(b7)
+        return torch.cat([b3, b7, F.max_pool2d(x, 3, stride=2)], 1)
+
+
+class InceptionE(nn.Module):
+    def __init__(self, cin: int, pool: str):
+        super().__init__()
+        self.pool = pool  # Mixed_7b: "avg"; Mixed_7c: "max" (pytorch-fid's FIDInceptionE_2)
+        self.branch1x1 = BasicConv2d(cin, 320, kernel_size=1)
+        self.branch3x3_1 = BasicConv2d(cin, 384, kernel_size=1)
+        self.branch3x3_2a = BasicConv2d(384, 384, kernel_size=(1, 3), padding=(0, 1))
+        self.branch3x3_2b = BasicConv2d(384, 384, kernel_size=(3, 1), padding=(1, 0))
+        self.branch3x3dbl_1 = BasicConv2d(cin, 448, kernel_size=1)
+        self.branch3x3dbl_2 = BasicConv2d(448, 384, kernel_size=3, padding=1)
+        self.branch3x3dbl_3a = BasicConv2d(384, 384, kernel_size=(1, 3), padding=(0, 1))
+        self.branch3x3dbl_3b = BasicConv2d(384, 384, kernel_size=(3, 1), padding=(1, 0))
+        self.branch_pool = BasicConv2d(cin, 192, kernel_size=1)
+
+    def forward(self, x):
+        b3 = self.branch3x3_1(x)
+        b3 = torch.cat([self.branch3x3_2a(b3), self.branch3x3_2b(b3)], 1)
+        bd = self.branch3x3dbl_2(self.branch3x3dbl_1(x))
+        bd = torch.cat([self.branch3x3dbl_3a(bd), self.branch3x3dbl_3b(bd)], 1)
+        pool = _avg_pool(x) if self.pool == "avg" else F.max_pool2d(x, 3, stride=1, padding=1)
+        return torch.cat([self.branch1x1(x), b3, bd, self.branch_pool(pool)], 1)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """cuDNN convolutions in full fp32 for the block, then as they were."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+class InceptionV3Features(nn.Module):
+    """(N, H, W, 3) images in [0, 1] -> (N, 2048) pool3 features, fp32."""
+
+    def __init__(self):
+        super().__init__()
+        self.Conv2d_1a_3x3 = BasicConv2d(3, 32, kernel_size=3, stride=2)
+        self.Conv2d_2a_3x3 = BasicConv2d(32, 32, kernel_size=3)
+        self.Conv2d_2b_3x3 = BasicConv2d(32, 64, kernel_size=3, padding=1)
+        self.Conv2d_3b_1x1 = BasicConv2d(64, 80, kernel_size=1)
+        self.Conv2d_4a_3x3 = BasicConv2d(80, 192, kernel_size=3)
+        self.Mixed_5b = InceptionA(192, 32)
+        self.Mixed_5c = InceptionA(256, 64)
+        self.Mixed_5d = InceptionA(288, 64)
+        self.Mixed_6a = InceptionB(288)
+        self.Mixed_6b = InceptionC(768, 128)
+        self.Mixed_6c = InceptionC(768, 160)
+        self.Mixed_6d = InceptionC(768, 160)
+        self.Mixed_6e = InceptionC(768, 192)
+        self.Mixed_7a = InceptionD(768)
+        self.Mixed_7b = InceptionE(1280, "avg")
+        self.Mixed_7c = InceptionE(2048, "max")
+
+    @torch.no_grad()
+    def forward(self, images01: torch.Tensor) -> torch.Tensor:
+        x = images01.float().permute(0, 3, 1, 2)
+        x = F.interpolate(x, size=(299, 299), mode="bilinear", align_corners=False,
+                          antialias=False)
+        x = x * 2.0 - 1.0
+        with _no_tf32():
+            x = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(self.Conv2d_1a_3x3(x)))
+            x = F.max_pool2d(x, 3, stride=2)
+            x = self.Conv2d_4a_3x3(self.Conv2d_3b_1x1(x))
+            x = F.max_pool2d(x, 3, stride=2)
+            for name in ("5b", "5c", "5d", "6a", "6b", "6c", "6d", "6e", "7a", "7b", "7c"):
+                x = getattr(self, f"Mixed_{name}")(x)
+        return x.mean(dim=(2, 3))
+
+
+def load_inception(path: str, device="cuda") -> InceptionV3Features:
+    """The FID Inception from a torch-format state dict in torchvision's
+    layout (`pt_inception-2015-12-05`), on `device` in eval mode.  `fc.*`
+    and `AuxLogits.*` are ignored; any other missing or unexpected key
+    raises, as does a file that is no state dict."""
+    from ..core import resolve_device
+
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    state = {k: v for k, v in raw.items() if k.split(".")[0] not in ("fc", "AuxLogits")}
+    model = InceptionV3Features()
+    model.load_state_dict(state)
+    return model.to(resolve_device(device)).eval()

@@ -5,9 +5,9 @@ and token count N:
   * "kernel": the packed-attention kernel pair (`attention.packed_attention`)
     for a bf16 site with d a multiple of 16 no larger than 64 and N a
     multiple of 16 -- all 14 UNet sites of the shipped config
-    (d = 16/32/48/64).  With grad enabled it runs as
-    `attention.PackedAttention`: the forward kernel, and as its gradient
-    the backward kernel of `csrc/packed_attention_bwd.cu`;
+    (d = 16/32/48/64).  With grad enabled it runs as the operator
+    `attention.packed_attention_fwd`: the forward kernel, and as its
+    gradient the backward kernels of `csrc/packed_attention_bwd.cu`;
   * "flash": the blockwise kernel (`attention.flash_attention`, heads split
     to the (B, H, N, D) layout) for a bf16 site whose d is in
     `FLASH_HEAD_DIMS` and N a multiple of its 64-row tile -- the VAE's two
@@ -36,11 +36,12 @@ from .attention import (
     FLASH_TILE,
     HEAD_DIMS,
     FlashAttention,
-    PackedAttention,
     flash_attention,
     merge_heads,
     packed_attention,
     packed_attention_bwd,
+    packed_attention_bwd_op,
+    packed_attention_fwd,
     reference_attention,
     reference_attention_heads,
     reference_flash_attention,
@@ -51,11 +52,12 @@ from .attention import (
 
 __all__ = [
     "FlashAttention",
-    "PackedAttention",
     "flash_attention",
     "merge_heads",
     "packed_attention",
     "packed_attention_bwd",
+    "packed_attention_bwd_op",
+    "packed_attention_fwd",
     "reference_attention",
     "reference_attention_heads",
     "reference_flash_attention",
@@ -99,7 +101,9 @@ def record_sites():
 
 
 def log_site(B: int, N: int, C: int, num_heads: int, route: str) -> None:
-    """Called by SpatialSelfAttention; a no-op outside `record_sites`."""
+    """Called by SpatialSelfAttention; a no-op outside `record_sites`.  It
+    counts Python calls, which a block recomputed under remat makes again;
+    kernel launches are counted where they happen, in the wrappers."""
     log = _SITE_LOG.get()
     if log is not None:
         log.append((int(B), int(N), int(C), int(num_heads), route))

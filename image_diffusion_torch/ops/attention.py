@@ -1,7 +1,9 @@
 """Self-attention kernels and their plain PyTorch versions.
 
-  * The packed (B, N, C) layout: the Hopper forward and backward kernels
-    paired in `PackedAttention`.  Heads sit in contiguous channel bands:
+  * The packed (B, N, C) layout: the Hopper forward and backward kernels,
+    paired as the dispatcher operators `packed_attention_fwd` (output and
+    row sums) and `packed_attention_bwd_op` (its gradient).  Heads sit in
+    contiguous channel bands:
     head h owns channels [h*d, (h+1)*d) with d = C / num_heads (the
     reference "(h d)" split).
   * The head-major (B, H, N, D) layout: the blockwise (flash) forward
@@ -226,7 +228,7 @@ def _packed_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads
 def packed_attention_with_row_sum(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   num_heads: int):
     """The forward alone -> (out (B, N, C), row_sum (B, heads, N) float32):
-    what `PackedAttention` saves for `packed_attention_bwd`.  No gradient
+    what the forward operator saves for `packed_attention_bwd`.  No gradient
     flows through it."""
     return _packed_forward(q, k, v, num_heads, return_row_sum=True)
 
@@ -237,7 +239,7 @@ def packed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Backward of packed self-attention -> (dq, dk, dv), each (B, N, C).
 
     `out` and `row_sum` are the forward's output and fp32 row sums (B,
-    heads, N) for the same q, k, v, as `PackedAttention` saves them; given
+    heads, N) for the same q, k, v, as the forward operator saves them; given
     neither, they are computed first (on the card by a launch of the
     forward kernel, which adds one to `packed_attention.launches`).  CPU
     tensors take the plain versions; CUDA tensors launch the kernels of
@@ -276,43 +278,74 @@ def packed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 packed_attention_bwd.launches = 0
 
 
-class PackedAttention(torch.autograd.Function):
-    """Packed self-attention with the kernel pair: the forward kernel (or
-    its plain version on the CPU) and, as its gradient, the backward kernels
-    (or their plain version).  On the card q, k, v, the output and the
-    forward's row sums are saved, and the backward rebuilds P from them in
-    one pass; on the CPU q, k and v are saved and the plain backward
-    recomputes the rest."""
+# The packed pair as dispatcher operators.  A ctypes launch inside a Python
+# function is invisible to the dispatcher; as operators, the forward's two
+# outputs are what a selective-checkpoint policy (`models/unet.py`'s remat)
+# can save, so a recomputed block never launches the forward kernel again.
+# Each keeps the wrapper's checks, its raise and its CPU route inside.
 
-    @staticmethod
-    def forward(ctx, q, k, v, num_heads: int):
-        ctx.num_heads = num_heads
-        if _on_cpu(q, k, v):
-            ctx.save_for_backward(q, k, v)
-            return _packed_forward(q, k, v, num_heads)
-        out, row_sum = _packed_forward(q, k, v, num_heads, return_row_sum=True)
-        ctx.save_for_backward(q, k, v, out, row_sum)
-        return out
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, *stats = ctx.saved_tensors  # stats: (out, row_sum) on the card, else ()
-        dq, dk, dv = packed_attention_bwd(q, k, v, do.contiguous(), ctx.num_heads, *stats)
-        return dq, dk, dv, None
+@torch.library.custom_op("image_diffusion_torch::packed_attention_fwd", mutates_args=())
+def packed_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         num_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward with its row sums -> (out, row_sum), as an operator whose
+    gradient is `packed_attention_bwd_op`: the kernel (its plain version on
+    CPU tensors) with the fp32 row sums (B, heads, N) the backward takes."""
+    return _packed_forward(q, k, v, num_heads, return_row_sum=True)
+
+
+@torch.library.custom_op("image_diffusion_torch::packed_attention_bwd", mutates_args=())
+def packed_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor, out: torch.Tensor, row_sum: torch.Tensor,
+                            num_heads: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of `packed_attention_fwd` -> (dq, dk, dv).  On the card
+    the backward kernels rebuild P in one pass from the forward's output and
+    row sums; on the CPU the plain backward recomputes P and delta from q, k
+    and v alone, as it always has (the saved statistics go unused there)."""
+    if _on_cpu(q, k, v, do):
+        return reference_packed_attention_bwd(q, k, v, do, num_heads)
+    return packed_attention_bwd(q, k, v, do, num_heads, out, row_sum)
+
+
+@packed_attention_fwd.register_fake
+def _fwd_fake(q, k, v, num_heads):
+    """Shapes only (the meta device); a device other than the CPU or a card
+    raises, as the operator does."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"packed_attention: q on {q.device}, expected the CPU or a CUDA device")
+    B, N, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, num_heads, N), dtype=torch.float32)
+
+
+def _fwd_setup_context(ctx, inputs, output):
+    q, k, v, num_heads = inputs
+    ctx.num_heads = num_heads
+    ctx.save_for_backward(q, k, v, *output)
+
+
+def _fwd_backward(ctx, do, _d_row_sum):
+    q, k, v, out, row_sum = ctx.saved_tensors
+    dq, dk, dv = packed_attention_bwd_op(q, k, v, do.contiguous(), out, row_sum, ctx.num_heads)
+    return dq, dk, dv, None
+
+
+torch.library.register_autograd("image_diffusion_torch::packed_attention_fwd", _fwd_backward,
+                                setup_context=_fwd_setup_context)
 
 
 def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      num_heads: int) -> torch.Tensor:
     """Packed self-attention (B, N, C) -> (B, N, C).
 
-    With grad enabled it runs as `PackedAttention`, so its gradient comes
-    from the backward kernel; under `no_grad`/`inference_mode` the forward
-    runs alone.  CPU tensors take the plain versions; CUDA tensors launch
-    the kernels or raise.  Each launch of the forward kernel, from here or
-    from `packed_attention_bwd` called without the forward's statistics,
-    adds one to `packed_attention.launches`."""
+    With grad enabled it runs as the operator `packed_attention_fwd`, so its
+    gradient comes from the backward kernel; under `no_grad`/
+    `inference_mode` the forward runs alone, without row sums.  CPU tensors
+    take the plain versions; CUDA tensors launch the kernels or raise.  Each
+    launch of the forward kernel, from here or from `packed_attention_bwd`
+    called without the forward's statistics, adds one to
+    `packed_attention.launches`."""
     if torch.is_grad_enabled():
-        return PackedAttention.apply(q, k, v, num_heads)
+        return packed_attention_fwd(q, k, v, num_heads)[0]
     return _packed_forward(q, k, v, num_heads)
 
 

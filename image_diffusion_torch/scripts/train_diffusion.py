@@ -6,6 +6,11 @@ scripts/train_diffusion.py.
 Runs on the CUDA card unless `--device cpu` is given.  Reads the latents
 (NCHW datasets are converted once to NHWC) and labels named by the config,
 trains, and writes per-epoch checkpoints in the JAX trainer's layout.
+`--remat` overrides the config's activation remat policy; `--preview-vae`
+with `--preview-freq N` logs a sampled CFG grid every N epochs (needs
+matplotlib); `--debug-nans` stops at the first non-finite loss or gradient
+norm (see README).  With `IDTPU_PROFILE=<dir>` the run writes a
+torch.profiler trace there.
 """
 
 from __future__ import annotations
@@ -24,6 +29,18 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", type=str, default=None, help="Resume from checkpoint.")
     p.add_argument("--comment", type=str, default=None)
     p.add_argument("--no-mlflow", action="store_true")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="Anomaly detection in the backward, and stop at the first non-finite "
+                        "loss or gradient norm (FloatingPointError naming the step).")
+    p.add_argument("--preview-vae", type=str, default=None,
+                   help="VAE checkpoint for in-training sample previews.")
+    p.add_argument("--preview-freq", type=int, default=0,
+                   help="Log a sampled CFG grid every N epochs (0 = off).")
+    p.add_argument("--preview-steps", type=int, default=20,
+                   help="DPM-Solver++ steps per preview.")
+    p.add_argument("--remat", choices=["none", "dots", "full"], default=None,
+                   help="Activation remat policy of the train step (overrides the YAML "
+                        "`remat:` key; see models/unet.py).")
     add_device_argument(p)
     return p.parse_args(argv)
 
@@ -35,10 +52,12 @@ def main(argv=None):
     from ..core.config import DiffusionConfig
     from ..core.logging import BasicLogger, get_run_name
     from ..core.metrics import MetricHolder
+    from ..core.profiling import trace
     from ..training.data import ArrayDataset
     from ..training.diffusion_trainer import DiffusionTrainer
 
-    cfg = DiffusionConfig.from_yaml(args.config)
+    overrides = {} if args.remat is None else {"remat": args.remat}
+    cfg = DiffusionConfig.from_yaml(args.config, **overrides)
     run_name = args.experiment_name or get_run_name("unet")
     logger = BasicLogger(cfg.train.logs_dir, run_name, args.no_mlflow, cfg.train.log_interval)
     holder = MetricHolder(cfg.train.log_interval)
@@ -52,8 +71,11 @@ def main(argv=None):
     labels = np.load(cfg.train.train_labels)
     trainer = DiffusionTrainer(cfg, ArrayDataset(latents, labels), logger, holder,
                                checkpoint=args.checkpoint, run_name=run_name,
-                               device=args.device)
-    trainer.train()
+                               device=args.device, preview_vae=args.preview_vae,
+                               preview_freq=args.preview_freq, preview_steps=args.preview_steps,
+                               debug_nans=args.debug_nans)
+    with trace():
+        trainer.train()
     return trainer
 
 

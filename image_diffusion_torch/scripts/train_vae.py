@@ -11,7 +11,11 @@ trains the KL or VQ VAE-GAN (`configs/vae-kl-32x32.yaml`,
 evaluates on the dev set each epoch, draws reconstruction figures of
 `plot_set` when that file exists, and writes per-epoch checkpoints in the
 JAX trainer's layout.  Training without LPIPS weights changes the
-objective, so it needs `--allow-no-lpips`.
+objective, so it needs `--allow-no-lpips`.  `--fid-weights` (InceptionV3 in
+torchvision's layout) adds `dev/FID` to each epoch's dev evaluation;
+`--debug-nans` stops at the first non-finite loss or gradient norm (see
+README).  With `IDTPU_PROFILE=<dir>` the run writes a torch.profiler trace
+there.
 """
 
 from __future__ import annotations
@@ -37,6 +41,12 @@ def parse_args(argv=None):
     p.add_argument("--allow-no-lpips", action="store_true",
                    help="Acknowledge training WITHOUT the perceptual loss, which "
                         "changes what the VAE optimizes.")
+    p.add_argument("--fid-weights", type=str, default=None,
+                   help="Path to torch-format InceptionV3 weights (e.g. "
+                        "pt_inception-2015-12-05.pth); enables per-epoch dev FID.")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="Anomaly detection in the backward, and stop at the first non-finite "
+                        "loss or gradient norm (FloatingPointError naming the step).")
     add_device_argument(p)
     return p.parse_args(argv)
 
@@ -48,6 +58,9 @@ def main(argv=None):
     from ..core.config import VAEConfig
     from ..core.logging import BasicLogger, get_run_name
     from ..core.metrics import MetricHolder
+    from ..core.profiling import trace
+    from ..models.fid import FID
+    from ..models.inception import load_inception
     from ..models.lpips import try_load_lpips
     from ..training.data import ArrayDataset
     from ..training.vae_trainer import VAETrainer
@@ -71,11 +84,18 @@ def main(argv=None):
         logger.log_console("WARNING: " + msg)
         logger.log_params(lpips_disabled=True)
 
+    fid_fn = None
+    if args.fid_weights:
+        fid_fn = FID(load_inception(args.fid_weights, args.device), 2048)
+        logger.log_console("Per-epoch dev FID enabled (InceptionV3 pool3).")
+
     train_ds = ArrayDataset(np.load(cfg.train.train_set))
     dev_ds = ArrayDataset(np.load(cfg.train.dev_set)) if os.path.exists(cfg.train.dev_set) else None
     trainer = VAETrainer(cfg, train_ds, dev_ds, logger, holder, checkpoint=args.checkpoint,
-                         run_name=run_name, percept_fn=percept_fn, device=args.device)
-    trainer.train()
+                         run_name=run_name, percept_fn=percept_fn, device=args.device,
+                         fid_fn=fid_fn, debug_nans=args.debug_nans)
+    with trace():
+        trainer.train()
     return trainer
 
 

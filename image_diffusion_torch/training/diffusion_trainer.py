@@ -15,16 +15,21 @@ clip, with no epsilon).  Trainer checkpoints are written and read in the
 JAX trainer's layout, so a run saved by either package resumes in the
 other.
 
-Not ported yet: remat (any `remat` other than "none" raises), data-parallel
-and FSDP training, and in-training sample previews.
+The config's `remat` policy ("none", "dots" or "full") is the UNet's (see
+`models/unet.py`).  With previews on, every `preview_freq` epochs a small
+CFG grid is sampled from the current weights (the EMA's when kept) through
+a frozen VAE and logged as a figure (`Preview`).  With `debug_nans`, the
+backward runs under autograd's anomaly detection and a loss or gradient
+norm that is not finite raises `FloatingPointError` naming the step.
+
+Not ported yet: data-parallel and FSDP training.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
-from typing import Callable, NamedTuple
+from typing import Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -35,14 +40,42 @@ from ..core import resolve_device
 from ..core.config import DiffusionConfig
 from ..core.logging import BasicLogger
 from ..core.metrics import MetricHolder
+from ..core.plotting import plot_cfg_grid, pyplot
 from ..core.preemption import PreemptionGuard
+from ..core.profiling import StepTimer
 from ..core.progress import progress
 from ..core.rng import epoch_seed, numpy_seed, root_seed, step_generator
 from ..models import build_unet
+from ..models.io import read_vae
 from ..models.unet import UNet
 from ..models.vae import VAE
 from ..ops import schedule as S
 from .data import ArrayDataset, epoch_batches, steps_per_epoch
+
+
+def check_finite(values: Mapping[str, torch.Tensor]) -> None:
+    """Raise FloatingPointError naming every value that is not finite (a
+    host sync per value; `--debug-nans` only)."""
+    bad = [name for name, v in values.items() if not bool(torch.isfinite(v).all())]
+    if bad:
+        raise FloatingPointError("non-finite " + ", ".join(bad))
+
+
+def run_step(train_step: Callable[..., dict], debug_nans: bool, where: str, *args,
+             **kwargs) -> dict:
+    """`train_step(*args, **kwargs)`.  With `debug_nans` it runs under
+    autograd's anomaly detection (which names a backward function that
+    returns NaN), its metrics are checked (`check_finite`), and a
+    FloatingPointError from either check names `where`."""
+    if not debug_nans:
+        return train_step(*args, **kwargs)
+    try:
+        with torch.autograd.detect_anomaly():
+            metrics = train_step(*args, **kwargs)
+        check_finite(metrics)
+    except FloatingPointError as e:
+        raise FloatingPointError(f"{where}: {e}") from e
+    return metrics
 
 
 def warmup_schedule(learning_rate: float, warmup_steps: int) -> Callable[[int], float]:
@@ -159,14 +192,17 @@ def draw(generator: torch.Generator, x_shape, num_steps: int, reparametrize: boo
 
 
 def make_train_step(sched: S.Schedule, cond_drop_prob: float, reparametrize: bool,
-                    ema_decay: float | None = None, grad_accum: int = 1):
+                    ema_decay: float | None = None, grad_accum: int = 1,
+                    debug_nans: bool = False):
     """-> train_step(state, x, c, draws) -> {"unet/loss", "unet/grad"}, 0-d
     device tensors.  `x` holds stored latents (B, H, W, 2z for KL), `c`
     class ids; `draws` is a `Draws` or a generator to draw them from.
 
     grad_accum > 1 splits the full-batch draws into micro-batches whose
     gradients are summed and divided once; the MSE's gradient is linear, so
-    the update equals the single-shot step's up to fp reassociation."""
+    the update equals the single-shot step's up to fp reassociation.
+    `debug_nans` checks each micro-batch's loss before its backward
+    (`check_finite`)."""
 
     def train_step(state: TrainState, x: torch.Tensor, c: torch.Tensor, draws) -> dict:
         if isinstance(draws, torch.Generator):
@@ -187,6 +223,8 @@ def make_train_step(sched: S.Schedule, cond_drop_prob: float, reparametrize: boo
                 rows = slice(i * m, (i + 1) * m)
                 eps_hat = state.unet(x_noise[rows], draws.t[rows], c[rows], mask[rows])
                 loss = torch.mean((eps_hat.float() - draws.noise[rows]) ** 2)
+                if debug_nans:
+                    check_finite({"unet/loss": loss})
                 loss.backward()
                 total = loss.detach() if i == 0 else total + loss.detach()
         if a > 1:
@@ -202,15 +240,46 @@ def make_train_step(sched: S.Schedule, cond_drop_prob: float, reparametrize: boo
     return train_step
 
 
+class Preview:
+    """In-training sample previews: a pipeline built once from a frozen VAE
+    file and the UNet's architecture, whose UNet takes the trainer's
+    current weights in place before each grid.  A grid is every class at
+    one guidance scale, DPM-Solver++ over `steps` steps, its noise from the
+    pipeline's own generator seeded with the epoch, so the training draws
+    never move.  The pipeline only samples: its host copies of the weights
+    (what `to_checkpoint` would write) stay those it was built with."""
+
+    def __init__(self, vae_path: str, config: DiffusionConfig,
+                 unet_state: Mapping[str, torch.Tensor], steps: int = 20, scale: float = 3.0,
+                 device: str | torch.device = "cuda"):
+        from ..pipelines.diffusion import DiffusionPipeline
+
+        vae_arch, vae_state = read_vae(vae_path)
+        self.classes = [str(i) for i in range(config.arch.num_classes)]
+        self.steps, self.scale = steps, scale
+        self.pipe = DiffusionPipeline(vae_arch, vae_state, config.arch, unet_state, config.schedule,
+                                      self.classes, dtype=config.train.compute_dtype, device=device)
+
+    @torch.no_grad()
+    def images(self, weights: Mapping[str, torch.Tensor], seed: int) -> torch.Tensor:
+        """The grid (classes, H, W, 3) in [-1, 1] from the UNet parameters
+        `weights` (by name), as `DiffusionPipeline.sample([scale], seed=seed,
+        sampler="dpm", num_inference_steps=steps)` gives it."""
+        for name, p in self.pipe.unet.named_parameters():
+            p.copy_(weights[name])
+        return self.pipe.sample([self.scale], seed=seed, sampler="dpm",
+                                num_inference_steps=self.steps)
+
+
 class DiffusionTrainer:
-    """Host-side orchestration: epochs, metrics, checkpoints."""
+    """Host-side orchestration: epochs, metrics, previews, checkpoints."""
 
     def __init__(self, config: DiffusionConfig, train_set: ArrayDataset, logger: BasicLogger,
                  holder: MetricHolder, checkpoint: str | None = None, run_name: str = "unet",
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", preview_vae: str | None = None,
+                 preview_freq: int = 0, preview_scale: float = 3.0, preview_steps: int = 20,
+                 debug_nans: bool = False):
         tc = config.train
-        if tc.remat != "none":
-            raise ValueError(f"remat {tc.remat!r} is not ported; use remat: none")
         tc.validate_accum()
         self.cfg = config
         self.train_set = train_set
@@ -222,7 +291,7 @@ class DiffusionTrainer:
         # fp32 parameters, compute in the config's dtype; init from seed 0
         self.unet = build_unet(config.arch, dtype=tc.compute_dtype, device=self.device,
                                generator=torch.Generator().manual_seed(0),
-                               param_dtype=torch.float32).train()
+                               param_dtype=torch.float32, remat=tc.remat).train()
         self.names = [n for n, _ in self.unet.named_parameters()]
         self.sched = S.make_schedule(config.schedule.num_steps, config.schedule.beta_start,
                                      config.schedule.beta_end, config.schedule.noise_type,
@@ -244,9 +313,15 @@ class DiffusionTrainer:
         else:
             logger.log_console("No checkpoint provided. Training from scratch.")
 
+        self.debug_nans = debug_nans
         self.train_step = make_train_step(
             self.sched, tc.cond_drop_prob, reparametrize=(tc.ae_type == "kl"),
-            ema_decay=tc.ema_decay, grad_accum=tc.grad_accum)
+            ema_decay=tc.ema_decay, grad_accum=tc.grad_accum, debug_nans=debug_nans)
+        self.preview, self.preview_freq = None, preview_freq
+        if preview_vae and preview_freq > 0:
+            pyplot()  # fails here, not at the first preview, without matplotlib
+            self.preview = Preview(preview_vae, config, self.unet.state_dict(), preview_steps,
+                                   preview_scale, self.device)
 
     def _named(self, tensors: list[torch.Tensor]) -> dict[str, torch.Tensor]:
         return dict(zip(self.names, tensors, strict=True))
@@ -308,21 +383,21 @@ class DiffusionTrainer:
             # the epoch loss averages every step's loss, the tail after the
             # last flush included
             epoch_loss_sum, loss_steps, steps_in_buffer = 0.0, 0, 0
-            t_last = time.time()
+            timer = StepTimer()
             batches = epoch_batches(self.train_set, cfg.batch_size, numpy_seed(eseed),
                                     device=self.device)
             for step, (x, c) in enumerate(progress(batches, total=spe, desc=f"epoch {epoch}")):
                 adjusted_step = epoch * spe + step
-                metrics = self.train_step(self.state, x, c, gen)
+                metrics = run_step(self.train_step, self.debug_nans,
+                                   f"step {adjusted_step} (epoch {epoch})", self.state, x, c, gen)
                 self.holder.store_dict(metrics)
                 self.holder.store_variable("unet/lr", self.state.optimizer.schedule(adjusted_step))
                 steps_in_buffer += 1
 
                 if (adjusted_step + 1) % cfg.log_interval == 0:
-                    flushed = self.holder.flush()  # waits for the last step
-                    now = time.time()
-                    flushed["unet/samples_per_sec"] = steps_in_buffer * cfg.batch_size / (now - t_last)
-                    t_last = now
+                    flushed = self.holder.flush()  # the sync: waits for the last step
+                    flushed["unet/samples_per_sec"] = timer.items_per_sec(
+                        steps_in_buffer * cfg.batch_size, metrics["unet/loss"])
                     self.logger.log_metrics(flushed, step=adjusted_step)
                     epoch_loss_sum += flushed.get("unet/loss", 0.0) * steps_in_buffer
                     loss_steps += steps_in_buffer
@@ -340,6 +415,16 @@ class DiffusionTrainer:
                 epoch_loss_sum += tail.get("unet/loss", 0.0) * steps_in_buffer
                 loss_steps += steps_in_buffer
             self.logger.log_metric("unet/epoch_loss", epoch_loss_sum / max(loss_steps, 1), step=epoch)
+            if self.preview is not None and (epoch + 1) % self.preview_freq == 0:
+                self._log_preview(epoch)
             path = self.save(epoch, asynchronous=True)
             self.logger.log_console(f"Saving checkpoint {path} (async)")
         self.saver.wait()
+
+    def _log_preview(self, epoch: int) -> None:
+        """The preview grid of the current weights (the EMA's when kept),
+        logged as previews/epoch_{epoch:03}.png."""
+        weights = self.state.ema if self.state.ema is not None else self.state.optimizer.params
+        imgs = self.preview.images(self._named(weights), seed=epoch)
+        fig = plot_cfg_grid(imgs.cpu().numpy(), self.preview.classes, [self.preview.scale])
+        self.logger.log_figure(f"previews/epoch_{epoch:03}.png", fig)

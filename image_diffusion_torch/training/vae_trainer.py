@@ -36,17 +36,20 @@ Trainer checkpoints are written and read in the JAX trainer's layout
 (trees vae, disc, disc_stats, vae_optim, disc_optim, extra.step, and the
 VQ codebook; epoch and architecture in the meta), so a run saved by either
 package resumes in the other.  Dev evaluation logs the losses, and the VQ
-perplexity, over every dev sample once; every `log_imgs_freq` steps the
-first 4 images of `plot_set` (when the file exists) are drawn beside their
-reconstructions.
+perplexity, over every dev sample once, and, given a FID (`models/fid.py`),
+`dev/FID` of the reconstructions against the dev images (the real
+statistics taken at the first evaluation and kept); every `log_imgs_freq`
+steps the first 4 images of `plot_set` (when the file exists) are drawn
+beside their reconstructions.  With `debug_nans`, the backward runs under
+autograd's anomaly detection and a loss or gradient norm that is not
+finite raises `FloatingPointError` naming the step.
 
-Not ported yet: per-epoch FID and data-parallel meshes.
+Not ported yet: data-parallel meshes.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
@@ -69,14 +72,16 @@ from ..core.logging import BasicLogger
 from ..core.metrics import MetricHolder
 from ..core.plotting import plot_reconstructions, pyplot
 from ..core.preemption import PreemptionGuard
+from ..core.profiling import StepTimer
 from ..core.progress import progress
 from ..core.rng import epoch_seed, eval_generator, numpy_seed, root_seed, step_generator
 from ..models import build_discriminator, build_vae
 from ..models.discriminator import Discriminator
+from ..models.fid import FID
 from ..models.lpips import LPIPS
 from ..models.vae import VAE
 from .data import ArrayDataset, epoch_batches, eval_batches, steps_per_epoch
-from .diffusion_trainer import Optimizer
+from .diffusion_trainer import Optimizer, check_finite, run_step
 from .losses import D_LOSSES, G_LOSSES, recon_loss, recon_loss_per_sample
 
 
@@ -138,10 +143,13 @@ def _set_grads(params: list[torch.Tensor], acc: list, n: int) -> None:
         p.grad = None if g is None else g / n  # None: the optimizer zero-fills it
 
 
-def make_vae_train_step(cfg: VAEConfig, percept_fn: Callable | None = None):
+def make_vae_train_step(cfg: VAEConfig, percept_fn: Callable | None = None,
+                        debug_nans: bool = False):
     """-> train_step(state, x_u8, draws, disc_active) -> metrics, 0-d device
     tensors.  `draws` is a `VAEDraws` or a generator to draw them from.
-    `percept_fn(real, fake)` is the LPIPS term (None: it contributes 0)."""
+    `percept_fn(real, fake)` is the LPIPS term (None: it contributes 0).
+    `debug_nans` checks each objective before its backward
+    (`check_finite`)."""
     tc = cfg.train
     d_loss_fn, g_loss_fn = D_LOSSES[tc.gan_loss], G_LOSSES[tc.gan_loss]
     is_vq, accum = cfg.arch.bottleneck == "vq", tc.grad_accum
@@ -179,6 +187,8 @@ def make_vae_train_step(cfg: VAEConfig, percept_fn: Callable | None = None):
                     out_fake = state.disc(x_hat).float()
                     out_real = state.disc(xm).float()
                     d_loss = d_loss_fn(out_fake, out_real)
+                    if debug_nans:
+                        check_finite({"gan/d_loss": d_loss})
                     _add_grads(acc, tc.disc_weight * d_loss, d_params)
                 add({"gan/d_loss": d_loss,
                      "gan/fake_acc": (torch.sigmoid(out_fake.detach()) < 0.5).float().mean(),
@@ -202,6 +212,8 @@ def make_vae_train_step(cfg: VAEConfig, percept_fn: Callable | None = None):
                     g_loss = g_loss_fn(state.disc(x_hat).float())
                     loss = loss + g_loss * tc.disc_weight
                     add({"gan/g_loss": g_loss})
+                if debug_nans:
+                    check_finite({"vae/loss": loss})
                 _add_grads(acc, loss, v_params)
             add({"vae/prior_loss": prior, "vae/recon_loss": rl, "vae/percept_loss": pl})
             if is_vq:
@@ -248,7 +260,8 @@ class VAETrainer:
     def __init__(self, config: VAEConfig, train_set: ArrayDataset, dev_set: ArrayDataset | None,
                  logger: BasicLogger, holder: MetricHolder, checkpoint: str | None = None,
                  run_name: str = "vae", percept_fn: LPIPS | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", fid_fn: FID | None = None,
+                 debug_nans: bool = False):
         tc = config.train
         tc.validate_accum()
         self.cfg = config
@@ -258,6 +271,8 @@ class VAETrainer:
         self.holder = holder
         self.run_name = run_name
         self.device = resolve_device(device)
+        self.fid_fn = fid_fn
+        self.debug_nans = debug_nans
 
         # fp32 parameters, compute in the config's dtype; init from seeds 0, 2
         dtype = tc.compute_dtype
@@ -285,7 +300,7 @@ class VAETrainer:
             logger.log_console(f"Loading model checkpoint from {checkpoint}")
         else:
             logger.log_console("No checkpoint provided. Training from scratch.")
-        self.train_step = make_vae_train_step(config, percept_fn)
+        self.train_step = make_vae_train_step(config, percept_fn, debug_nans)
         self.eval_step = make_eval_step(percept_fn)
         # the fixed plot set of the periodic reconstruction figures
         self.plot_images = None
@@ -359,23 +374,24 @@ class VAETrainer:
         for epoch in range(self.curr_epoch, cfg.epochs):
             eseed = epoch_seed(root, epoch)
             gen = step_generator(eseed, self.device)
-            steps_in_window, t_last = 0, time.time()
+            steps_in_window, timer = 0, StepTimer()
             batches = epoch_batches(self.train_set, cfg.batch_size, numpy_seed(eseed),
                                     device=self.device)
             for step, (x,) in enumerate(progress(batches, total=spe, desc=f"epoch {epoch}")):
                 adjusted_step = epoch * spe + step
                 if self.plot_images is not None and (adjusted_step + 1) % cfg.log_imgs_freq == 0:
                     self._log_reconstructions(adjusted_step, eseed)
-                metrics = self.train_step(self.state, x, gen,
-                                          disc_active=adjusted_step >= cfg.disc_start)
+                metrics = run_step(self.train_step, self.debug_nans,
+                                   f"step {adjusted_step} (epoch {epoch})", self.state, x, gen,
+                                   disc_active=adjusted_step >= cfg.disc_start)
                 self.holder.store_dict(metrics)
                 steps_in_window += 1
 
                 if (adjusted_step + 1) % cfg.log_interval == 0:
-                    flushed = self.holder.flush()  # waits for the last step
-                    now = time.time()
-                    flushed["util/imgs_per_sec"] = steps_in_window * cfg.batch_size / (now - t_last)
-                    steps_in_window, t_last = 0, now
+                    flushed = self.holder.flush()  # the sync: waits for the last step
+                    flushed["util/imgs_per_sec"] = timer.items_per_sec(
+                        steps_in_window * cfg.batch_size, metrics["vae/vae_grad"])
+                    steps_in_window = 0
                     self.logger.log_metrics(flushed, step=adjusted_step)
 
                 if guard.triggered:
@@ -406,19 +422,28 @@ class VAETrainer:
         weighted by its valid count, so every sample counts once; each
         batch gets fresh reparametrization noise.  The VQ perplexity of a
         batch counts its valid rows' codes and is weighted by their number.
-        One sync at the end."""
+        One sync at the end, and, with a FID, one per batch for its
+        features: the valid reconstructions in [0, 1] as the fake set, the
+        valid dev images as the real set until the first FID latches it."""
         cfg = self.cfg.train
         gen = eval_generator(seed, self.device)
         sums, n_seen = torch.zeros(3, device=self.device), 0
+        if self.fid_fn is not None:
+            self.fid_fn.reset_fake()
         for n_valid, (x,) in eval_batches(self.dev_set, cfg.batch_size, self.device):
             noise = torch.randn((x.shape[0], *_latent_shape(self.cfg, x)), generator=gen,
                                 device=self.device)
-            _, rl, pl, perplexity = self.eval_step(self.state.vae, x, noise, n_valid)
+            x_hat, rl, pl, perplexity = self.eval_step(self.state.vae, x, noise, n_valid)
             sums += torch.stack([rl[:n_valid].sum(), pl[:n_valid].sum(), perplexity * n_valid])
             n_seen += n_valid
+            if self.fid_fn is not None:
+                self.fid_fn.update_fake(((x_hat + 1.0) / 2.0)[:n_valid])
+                self.fid_fn.update_real_once(((normalize_batch(x) + 1.0) / 2.0)[:n_valid])
         if n_seen:
             recon, percept, perplexity = (sums / n_seen).tolist()
             self.logger.log_metric("dev/recon_loss", recon, step=epoch)
             self.logger.log_metric("dev/percept_loss", percept, step=epoch)
             if self.cfg.arch.bottleneck == "vq":
                 self.logger.log_metric("dev/perplexity", perplexity, step=epoch)
+        if self.fid_fn is not None:
+            self.logger.log_metric("dev/FID", self.fid_fn.compute(), step=epoch)

@@ -1,7 +1,8 @@
 """The port's packed-attention backward: its plain version, and the plain
 statement of the kernels' arithmetic from the forward's saved output and
 row sums, against the JAX packed kernel's VJP (the Pallas backward kernel in
-interpret mode), and the autograd pairing `PackedAttention` on the CPU.  The CUDA kernel itself is
+interpret mode), and the autograd pairing of the operators
+`packed_attention_fwd` and `packed_attention_bwd_op` on the CPU.  The CUDA kernel itself is
 held against its plain version in tests/test_torch_port_cuda.py."""
 
 import math
@@ -14,10 +15,10 @@ import torch
 from image_diffusion_tpu.ops.pallas.attention import _packed_forward
 from image_diffusion_torch.ops.attention import (
     LOG2E,
-    PackedAttention,
     merge_heads,
     packed_attention,
     packed_attention_bwd,
+    packed_attention_fwd,
     reference_packed_attention,
     reference_packed_attention_bwd,
     reference_packed_attention_bwd_from_stats,
@@ -147,12 +148,12 @@ def test_backward_takes_both_saved_statistics_or_neither():
 
 @pytest.mark.parametrize("B,N,C,heads", [(2, 64, 64, 4), (1, 48, 96, 2), (2, 16, 128, 2)])
 def test_autograd_function_matches_autograd_of_plain_forward(B, N, C, heads):
-    """fp32 inputs on the CPU: the Function's gradients (the plain backward)
+    """fp32 inputs on the CPU: the forward operator's gradients (the plain backward)
     against autograd through the plain forward, cosine > 0.999 per operand
     (the bf16 roundings inside give ~1e-2 relative noise elementwise)."""
     q, k, v, w = (torch.from_numpy(t) for t in _arrays(B, N, C, 4, seed=B * N + C))
     grads = []
-    for fn in (lambda *a: PackedAttention.apply(*a, heads),
+    for fn in (lambda *a: packed_attention_fwd(*a, heads)[0],
                lambda *a: reference_packed_attention(*a, heads)):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         (fn(*leaves) * w).sum().backward()
@@ -167,7 +168,8 @@ def test_packed_attention_with_grad_is_the_function_and_without_grad_is_not():
                for t in _arrays(2, 32, 64, 3, seed=1))
     launches = packed_attention.launches, packed_attention_bwd.launches
     out = packed_attention(q, k, v, 2)
-    assert type(out.grad_fn).__name__ == "PackedAttentionBackward"
+    # the gradient of the forward operator, whose backward is packed_attention_bwd_op
+    assert "packed_attention_fwd" in type(out.grad_fn).__name__
     out.float().sum().backward()
     assert all(t.grad is not None and t.grad.dtype == torch.bfloat16 for t in (q, k, v))
     with torch.no_grad():

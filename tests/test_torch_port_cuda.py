@@ -135,7 +135,7 @@ def test_cuda_bwd_kernel_matches_plain_version(card, N, C, heads):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,C,heads", SITES)
 def test_cuda_bwd_through_the_function_equals_the_backward_called_alone(card, N, C, heads):
-    """`PackedAttention` hands the forward's output and row sums to the
+    """The forward operator hands its output and row sums to the
     backward; called alone the wrapper launches the forward first.  The
     same kernels on the same statistics: equal bit for bit, and every
     launch of the forward kernel is counted, the wrapper's own too."""
@@ -369,3 +369,58 @@ def test_vq_vae_train_forward_launches_flash_and_updates_the_codebook(card):
                      (cb.embeddings.weight, w / smoothed[:, None])):
         assert got.dtype == torch.float32
         assert float((got.double() - ref).abs().max() / ref.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dots", "full"])
+def test_remat_step_launches_each_packed_kernel_once_a_site(card, mode):
+    """The full-width UNet at batch 2, bf16 compute on fp32 parameters: a
+    forward and backward under `mode` launch the forward and the backward
+    kernel 14 times each (the forward's output is saved, never
+    recomputed), and the gradients equal the plain module's to 1e-3
+    relative L2 (the recomputed GroupNorm/SiLU chains are the same kernels
+    on the same inputs; cuDNN's backward may sum in another order)."""
+    from image_diffusion_torch.core.config import UNetArch
+    from image_diffusion_torch.models import build_unet
+
+    g = torch.Generator().manual_seed(4)
+    state = build_unet(UNetArch(), torch.float32, "cpu", g).state_dict()
+    x, noise = torch.randn(2, 32, 32, 3, generator=g), torch.randn(2, 32, 32, 3, generator=g)
+    args = [a.cuda() for a in (x, torch.tensor([3, 700]), torch.tensor([0, 2]),
+                               torch.tensor([[1.0], [0.0]]))]
+    grads = {}
+    for remat in (None, mode):
+        unet = build_unet(UNetArch(), device="cuda", param_dtype=torch.float32, remat=remat)
+        unet.load_state_dict(state)
+        fwd, bwd = packed_attention.launches, packed_attention_bwd.launches
+        torch.mean((unet(*args).float() - noise.cuda()) ** 2).backward()
+        torch.cuda.synchronize()
+        assert (packed_attention.launches - fwd, packed_attention_bwd.launches - bwd) == (14, 14)
+        grads[remat] = torch.cat([p.grad.float().flatten() for p in unet.parameters()])
+    rel = float((grads[mode] - grads[None]).norm() / grads[None].norm())
+    assert rel <= 1e-3, rel
+
+
+@pytest.mark.cuda
+def test_inception_features_on_the_card_match_the_cpu_in_fp32(card):
+    """The FID Inception on random weights (tests/torch_oracles.py), two
+    64x64 images: the card's features against the CPU's at 1e-4 of the
+    largest (fp32 throughout, TF32 off inside the call; with TF32 the error
+    is about three digits' worth); the call leaves the TF32 switch as it
+    found it."""
+    from torch_oracles import random_inception
+
+    from image_diffusion_torch.models.inception import InceptionV3Features
+
+    state = random_inception(0).state_dict()
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(0))
+    feats = []
+    for dev in ("cuda", "cpu"):
+        model = InceptionV3Features().to(dev).eval()
+        model.load_state_dict(state)
+        saved = torch.backends.cudnn.allow_tf32
+        feats.append(model(x.to(dev)).cpu())
+        assert torch.backends.cudnn.allow_tf32 == saved
+    card_f, cpu_f = feats
+    assert card_f.shape == (2, 2048) and card_f.dtype == torch.float32
+    assert float((card_f - cpu_f).abs().max() / cpu_f.abs().max()) <= 1e-4

@@ -350,7 +350,9 @@ def test_config_reader_refuses_what_is_not_flat(tmp_path, text):
 
 
 def test_trainer_refuses_remat(tmp_path):
-    _, tc = configs(tmp_path, remat="dots")
+    """remat none/dots/full train (tests/test_torch_port_remat.py); any
+    other policy is refused at construction."""
+    _, tc = configs(tmp_path, remat="everything")
     with pytest.raises(ValueError, match="remat"):
         DiffusionTrainer(tc, tdata.ArrayDataset(*batch()), BasicLogger(str(tmp_path), "r", True, 1),
                          MetricHolder(1), device="cpu")
