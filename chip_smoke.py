@@ -5,14 +5,16 @@
 
 Phases, one status line each; any failure exits non-zero:
   1. the card: name and power limit (nvidia-smi); python, torch, CUDA and
-     triton versions; whether matplotlib, PIL and tqdm import;
+     triton versions; whether matplotlib, PIL and tqdm import and whether
+     transformers is installed;
   2. build every kernel of the sampling and both training paths from the
      sources in this checkout (nvcc, sm_90a, one process per source, all
      started together), with the build seconds, nvcc's release and ptxas'
      registers per kernel; a kernel that spills registers fails the phase;
   3. the forward kernel and the row sums it hands to the backward against
      their plain PyTorch version at the shapes the sampling grid gives it
-     (batch 54, bf16), with times of the kernel, the plain version and one
+     (batch 54, bf16) and at the served batch's (16 rows: 8 conditional and
+     8 unconditional), with times of the kernel, the plain version and one
      PyTorch library call, the card's bound and the time its
      special-function units need for the exponentials;
   3b. the backward kernels against their plain version at the same site
@@ -23,8 +25,9 @@ Phases, one status line each; any failure exits non-zero:
      through autograd);
   3c. the flash kernel against its plain version at the VAE's attention
      site (one head, N 1024, D 384) at batches 27 (the grid's decode), 24
-     (training's micro-batch at grad_accum 2), 48 (training) and 64
-     (prepare_dataset's batch), with the same times (library: SDPA, its backend named),
+     (training's micro-batch at grad_accum 2), 48 (training), 64
+     (prepare_dataset's batch) and 8 (the server's decode), with the same
+     times (library: SDPA, its backend named),
      the gradient through `FlashAttention` against autograd of the plain
      version, and the device time of that gradient (the einsum path's
      autograd, which has no kernel);
@@ -91,7 +94,26 @@ Phases, one status line each; any failure exits non-zero:
      same evaluation outputs, and what FID adds to the dev evaluation; (e)
      `eval_fid` on phase 8's bundle against phase 7's images (270 images,
      ddim-50, batch 64): the FID against the port's FID over `pipe.sample`
-     with the same seeds, img/s, launches a DDIM step.
+     with the same seeds, img/s, launches a DDIM step;
+  12. serving: (a) `python -m image_diffusion_torch.scripts.serve` as a
+     subprocess (batch 8, dpm-20, linger 40 ms) on a bundle of the shipped
+     KL config: seconds until /healthz says warm, the median latency of 10
+     sequential requests, a burst of 64 concurrent requests (3 classes, cfg
+     1-9, distinct seeds: wall time, img/s, p50/p95 latency, errors, batches
+     against requests from /info) and two of its requests again alone,
+     byte-identical; (b) the server's `Engine` in this process: launches
+     a served batch, its device idle share, the batch against
+     `sample_batch` with the same per-row generators, bit for bit, and
+     under ddim-50 with eta 1 a request alone in slot 0 against the same
+     request in slot 5 of a full batch, byte for byte;
+  13. CLIP zero-shot labels at ViT-B/32's widths, random weights in
+     transformers' layout from numpy: logits card vs CPU in fp32 (and, not
+     held, with TF32 on), `encode_images` images/s at batch 64, and
+     `prepare_dataset.zero_shot_labels` on 1,200 synthetic processed images
+     against the CPU's labels (a difference must be a near-tie); where
+     transformers is installed, `prepare_dataset --labels-mode clip` with
+     phase 7's VAE on 1,200 images from a CLIP directory of those weights
+     written by the script, `--clip-backend port` against `torch`.
 Then a JSON line of kernel records, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
@@ -172,6 +194,23 @@ INCEPTION_REL = 1e-4
 # phase 11: a FID against its recomputation from the same images and
 # features (the same float64 sums in the same order): |diff| / FID
 FID_REL = 1e-6
+# phase 12: the server's fixed batch, sampler and linger, as users start it,
+# and the burst of concurrent requests
+SERVE_ARGS = ["--batch-size", "8", "--sampler", "dpm", "--steps", "20", "--linger-ms", "40"]
+SERVE_BATCH = 8
+SERVE_BURST = 64
+# phase 13: CLIP at openai/clip-vit-base-patch32's widths (its config.json;
+# the text tower's eos_token_id 2 selects transformers' legacy pooling)
+CLIP_B32 = dict(vision_width=768, vision_layers=12, vision_heads=12, vision_hidden=3072,
+                image_size=224, patch_size=32, text_width=512, text_layers=12, text_heads=8,
+                text_hidden=2048, vocab_size=49408, text_positions=77, projection_dim=512)
+CLIP_IMAGES = 1200
+# phase 13: CLIP logits, card vs CPU in fp32 with TF32 off, max|diff| / max
+# |CPU| through 12 + 12 fp32 layers summed in other orders; a label that
+# differs must be a near-tie: the two logits within CLIP_TIE of the row's
+# largest |logit|
+CLIP_REL = 1e-4
+CLIP_TIE = 1e-4
 # csrc/<name>.cu of every kernel the paths run
 KERNEL_SOURCES = ["packed_attention", "packed_attention_bwd", "flash_attention"]
 
@@ -245,9 +284,15 @@ def device_profile(torch, fn, iters: int = 3):
 def device_ms(torch, fn) -> float:
     """Device time of one call of `fn`: its kernels' durations summed, from
     a torch.profiler trace of 5 calls.  Unlike the CUDA-event time of a run
-    of calls it leaves out the gaps the host leaves between short kernels."""
+    of calls it leaves out the gaps the host leaves between short kernels.
+    A trace now and then comes back without device events (seen once in
+    three dozen traces of one call); it is taken again, up to twice."""
     fn()
-    return sum(device_profile(torch, fn, iters=5)[0].values())
+    for _ in range(3):
+        ms = sum(device_profile(torch, fn, iters=5)[0].values())
+        if ms > 0:
+            break
+    return ms
 
 
 def idle_share(busy_ms: float, wall_ms: float) -> str:
@@ -268,14 +313,14 @@ def exp_ms(exponentials: float, clock_hz: float) -> float:
     return exponentials / (EXP_PER_CLOCK * clock_hz) * 1e3
 
 
-def phase_kernels(torch, F, attn, clock_hz):
+def phase_kernels(torch, F, attn, clock_hz, B):
     """Phase 3: packed attention, and the row sums it hands to the
-    backward, vs its plain version and SDPA per site."""
+    backward, vs its plain version and SDPA per site, at batch B."""
     sites = []
     for N, C, h in SITES:
         d = C // h
-        g = torch.Generator(device="cuda").manual_seed(1000 * N + C)
-        q, k, v = (torch.randn(B_GRID, N, C, generator=g, device="cuda").to(torch.bfloat16)
+        g = torch.Generator(device="cuda").manual_seed(1000 * N + C + B)
+        q, k, v = (torch.randn(B, N, C, generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
         with torch.no_grad():  # as the sampler calls it: the kernel gets no row_sum pointer
             got = attn.packed_attention(q, k, v, h)
@@ -287,29 +332,29 @@ def phase_kernels(torch, F, attn, clock_hz):
         ratio = float((diff / (ATOL + RTOL * ref.float().abs())).max())
         sum_rel = float(((sums - ref_sums).abs() / ref_sums).max())
         del sums, ref_sums
-        heads = [t.view(B_GRID, N, h, d).transpose(1, 2).contiguous() for t in (q, k, v)]
+        heads = [t.view(B, N, h, d).transpose(1, 2).contiguous() for t in (q, k, v)]
         with torch.no_grad():
             ms = cuda_ms(lambda: attn.packed_attention(q, k, v, h), iters=20)
             dev_ms = device_ms(torch, lambda: attn.packed_attention(q, k, v, h))
         plain_ms = cuda_ms(lambda: attn.reference_packed_attention(q, k, v, h), iters=5)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads), iters=20)
         lib_dev_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(*heads))
-        flops, nbytes = 4 * B_GRID * N * N * C, 4 * B_GRID * N * C * 2
+        flops, nbytes = 4 * B * N * N * C, 4 * B * N * C * 2
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        site = dict(N=N, C=C, d=d, max_abs_err=max_abs, tol_ratio=ratio, row_sum_rel_err=sum_rel,
+        site = dict(B=B, N=N, C=C, d=d, max_abs_err=max_abs, tol_ratio=ratio, row_sum_rel_err=sum_rel,
                     ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
                     library_device_ms=lib_dev_ms, bound_ms=bound_ms,
                     bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
-                    exp_ms=exp_ms(B_GRID * h * N * N, clock_hz))  # one exp2 per score
+                    exp_ms=exp_ms(B * h * N * N, clock_hz))  # one exp2 per score
         sites.append(site)
-        log(f"phase 3 kernel  N={N:5d} C={C} d={d}: max|err|={max_abs:.3e} "
+        log(f"phase 3 kernel  B={B} N={N:5d} C={C} d={d}: max|err|={max_abs:.3e} "
             f"(tolerance ratio {ratio:.3f}), row sums max rel err {sum_rel:.3e} (tolerance "
             f"{ROW_SUM_REL}); kernel {ms:.4f} ms ({dev_ms:.4f} ms on the device), plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({lib_dev_ms:.4f} ms on the device), "
             f"bound {bound_ms:.4f} ms ({site['bound_by']}), "
             f"exponentials {site['exp_ms']:.4f} ms")
         if not (ratio <= 1.0 and sum_rel <= ROW_SUM_REL):
-            raise AssertionError(f"kernel disagrees with its plain version at N={N} C={C}")
+            raise AssertionError(f"kernel disagrees with its plain version at B={B} N={N} C={C}")
     return sites
 
 
@@ -393,7 +438,8 @@ def phase_bwd_kernels(torch, F, attn, clock_hz):
 def phase_flash_kernel(torch, F, attn, clock_hz):
     """Phase 3c: the flash kernel against its plain version at the VAE's
     attention site (one head, N = 32*32, D = 384) at the grid's decode batch,
-    the training batch and its half and prepare_dataset's batch, with times, and the
+    the training batch and its half, prepare_dataset's batch and the server's
+    batch, with times, and the
     gradient through
     `FlashAttention` against autograd of the plain version."""
     from torch.nn.attention import SDPBackend
@@ -401,7 +447,7 @@ def phase_flash_kernel(torch, F, attn, clock_hz):
     N, D = 1024, 384
     scale = 1.0 / D ** 0.5
     batches = []
-    for B in (B_GRID // 2, B_TRAIN // 2, B_TRAIN, B_ENCODE):
+    for B in (B_GRID // 2, B_TRAIN // 2, B_TRAIN, B_ENCODE, SERVE_BATCH):
         g = torch.Generator(device="cuda").manual_seed(3000 + B)
         q, k, v = (torch.randn(B, 1, N, D, generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
@@ -1460,12 +1506,12 @@ def phase_fid(torch, np, attn, tmp, vae_train, clis):
     ref = cpu_model(x8)
     got = model(x8.cuda()).cpu()
     err = float((got - ref).abs().max() / ref.abs().max())
-    saved, inception._no_tf32 = inception._no_tf32, nullcontext
+    saved, inception.no_tf32 = inception.no_tf32, nullcontext
     tf32_saved, torch.backends.cudnn.allow_tf32 = torch.backends.cudnn.allow_tf32, True
     try:
         tf32 = model(x8.cuda()).cpu()
     finally:
-        inception._no_tf32, torch.backends.cudnn.allow_tf32 = saved, tf32_saved
+        inception.no_tf32, torch.backends.cudnn.allow_tf32 = saved, tf32_saved
     tf32_err = float((tf32 - ref).abs().max() / ref.abs().max())
     log(f"phase 11 inception features: 8 images of 128x128, card vs CPU in fp32 max|diff|/max "
         f"{err:.3e} (tolerance {INCEPTION_REL}); with TF32 on, not held, {tf32_err:.3e}")
@@ -1576,6 +1622,427 @@ def phase_fid(torch, np, attn, tmp, vae_train, clis):
                 eval_fid_rel_diff=eval_err, eval_fid_imgs_per_s=rate, eval_fid_launches=launches)
 
 
+def _http(url: str, payload: dict | None = None, timeout: float = 300):
+    """(status, body, seconds) of a GET (payload None) or a JSON POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"},
+                                 method="GET" if data is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.perf_counter() - t0
+
+
+def phase_serve(torch, np, attn, tmp, vae_state, unet_state):
+    """Phase 12: the port's server on a bundle of the shipped KL config."""
+    import argparse
+    import socket
+    import threading
+
+    from image_diffusion_torch.core.config import ScheduleConfig, UNetArch, VAEArch
+    from image_diffusion_torch.pipelines import DiffusionPipeline
+    from image_diffusion_torch.scripts import serve
+
+    path = os.path.join(tmp, "serve_bundle.ckpt")
+    DiffusionPipeline(VAEArch(), vae_state, UNetArch(), unet_state, ScheduleConfig(),
+                      "a hot place,a cold place,a mild place", device="cpu",
+                      dtype=torch.float32).to_checkpoint(path)
+
+    # (a) the server as users start it
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    server_log = os.path.join(tmp, "serve.log")
+    t0 = time.perf_counter()
+    with open(server_log, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "image_diffusion_torch.scripts.serve", path,
+                                 "--port", str(port), *SERVE_ARGS],
+                                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out,
+                                stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                raise AssertionError("the server died or never warmed up:\n"
+                                     + open(server_log).read()[-4000:])
+            try:
+                status, body, _ = _http(base + "/healthz", timeout=5)
+                if status == 200 and json.loads(body)["compiled"]:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+        ready_s = time.perf_counter() - t0
+        single = [_http(base + "/sample", {"class": i % 3, "cfg_scale": 3.0, "seed": 1000 + i})
+                  for i in range(10)]
+        if any(r[0] != 200 for r in single):
+            raise AssertionError(f"single requests failed: {[r[:2] for r in single if r[0] != 200]}")
+        single_ms = float(np.median([r[2] for r in single])) * 1e3
+        before = json.loads(_http(base + "/info")[1])["stats"]
+
+        reqs = [{"class": i % 3, "cfg_scale": float(1 + i % 9), "seed": 5000 + i}
+                for i in range(SERVE_BURST)]
+        burst = [None] * SERVE_BURST
+        gate = threading.Barrier(SERVE_BURST + 1)
+
+        def call(i):
+            gate.wait()
+            try:
+                burst[i] = _http(base + "/sample", reqs[i])
+            except OSError as e:
+                burst[i] = (0, repr(e).encode(), 0.0)
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(SERVE_BURST)]
+        for t in threads:
+            t.start()
+        gate.wait()
+        t1 = time.perf_counter()
+        for t in threads:
+            t.join()
+        burst_s = time.perf_counter() - t1
+        info = json.loads(_http(base + "/info")[1])
+        errors = [(i, r[0], r[1][:200]) for i, r in enumerate(burst) if r[0] != 200]
+        p50, p95 = (float(np.percentile([r[2] for r in burst], q)) * 1e3 for q in (50, 95))
+        stats = {k: info["stats"][k] - before[k] for k in before}
+        # one request of the burst again, alone: the same PNG bytes
+        again = [_http(base + "/sample", reqs[i]) for i in (0, 37)]
+        same = [again[j][1] == burst[i][1] for j, i in enumerate((0, 37))]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    rate = SERVE_BURST / burst_s
+    log(f"phase 12 server: `python -m image_diffusion_torch.scripts.serve {' '.join(SERVE_ARGS)}` "
+        f"on a bundle of the shipped KL config, warm after {ready_s:.1f} s; info {info['sampler']}-"
+        f"{info['steps']} batch {info['batch_size']} image {info['image_size']}; single request "
+        f"median {single_ms:.1f} ms of 10 sequential; burst of {SERVE_BURST} concurrent (3 classes, "
+        f"cfg 1-9, distinct seeds): {burst_s:.3f} s, {rate:.2f} img/s, latency p50 "
+        f"{p50:.1f} ms p95 {p95:.1f} ms, "
+        f"{len(errors)} errors, {stats['requests']} requests in {stats['batches']} batches; "
+        f"requests 0 and 37 alone again byte-identical to the burst's: {same}")
+    if errors or not stats["batches"] < stats["requests"] == SERVE_BURST or not all(same):
+        raise AssertionError(f"serving: errors {errors[:3]}, stats {stats}, identical {same}")
+
+    # (b) the engine in this process: launches, idle share, determinism
+    def engine(**kw):
+        args = dict(model=path, batch_size=SERVE_BATCH, linger_ms=40.0, sampler="dpm", steps=20,
+                    eta=0.0, device="cuda")
+        e = serve.Engine(argparse.Namespace(**{**args, **kw}))
+        e.warmup()
+        return e
+
+    eng = engine()
+    seeds, labels = list(range(11, 11 + SERVE_BATCH)), [i % 3 for i in range(SERVE_BATCH)]
+    scales = [float(1 + i) for i in range(SERVE_BATCH)]
+    torch.cuda.synchronize()
+    attn.packed_attention.launches = attn.flash_attention.launches = 0
+    imgs = eng._run(seeds, labels, scales)
+    torch.cuda.synchronize()
+    launches = (attn.packed_attention.launches, attn.flash_attention.launches)
+    gens = eng._row_generators(seeds)
+    with torch.inference_mode():
+        x_init = torch.stack([torch.randn(eng.pipe.latent_shape, generator=g, device="cuda")
+                              for g in gens])
+    ref = eng.pipe.sample_batch(labels, scales, x_init, sampler="dpm", num_inference_steps=20,
+                                row_generators=gens, output="uint8")
+    equal = bool(torch.equal(imgs, ref))
+    prof, kernels, wall = device_profile(torch, lambda: eng._run(seeds, labels, scales).cpu())
+    busy = sum(prof.values())
+    log(f"phase 12 engine: one served dpm-20 batch of {SERVE_BATCH}: {launches[0]} packed and "
+        f"{launches[1]} flash launches; bit-equal to pipe.sample_batch with the same per-row "
+        f"generators: {equal}; device busy {busy:.3f} ms of {wall:.3f} ms (the PNG encode "
+        f"excluded; idle share {idle_share(busy, wall)}), {kernels:.0f} kernels")
+    if launches != (14 * 20, 1) or not equal or imgs.shape != (SERVE_BATCH, 128, 128, 3):
+        raise AssertionError("served batch: wrong launches or unequal to pipe.sample_batch")
+
+    # stochastic ddim (eta 1, every step draws noise): a request alone in
+    # slot 0 and co-batched in slot 5, and another seed in slot 0
+    eng_ddim = engine(sampler="ddim", steps=50, eta=1.0)
+    pad = SERVE_BATCH - 1
+    attn.packed_attention.launches = attn.flash_attention.launches = 0
+    alone = eng_ddim._run([77] + [0] * pad, [2] + [0] * pad, [4.0] + [1.0] * pad)
+    torch.cuda.synchronize()
+    ddim_launches = (attn.packed_attention.launches, attn.flash_attention.launches)
+    co_seeds, co_labels = [5, 6, 7, 8, 9, 77, 10, 11], [0, 1, 2, 0, 1, 2, 0, 1]
+    co_scales = [2.0, 3.0, 5.0, 6.0, 7.0, 4.0, 8.0, 9.0]
+    cobatched = eng_ddim._run(co_seeds, co_labels, co_scales)
+    other = eng_ddim._run([78] + [0] * pad, [2] + [0] * pad, [4.0] + [1.0] * pad)
+    slot_equal = bool(torch.equal(alone[0], cobatched[5]))
+    differs = not torch.equal(alone[0], other[0])
+    n_diff = int((alone[0] != cobatched[5]).sum())
+    log(f"phase 12 stochastic ddim-50 eta 1: seed 77 alone in slot 0 vs co-batched in slot 5 next "
+        f"to 7 other requests byte-identical: {slot_equal} ({n_diff} bytes differ); seed 78 in "
+        f"slot 0 differs: {differs}; {ddim_launches[0]} packed and {ddim_launches[1]} flash "
+        f"launches a batch")
+    if not (slot_equal and differs) or ddim_launches != (14 * 50, 1):
+        raise AssertionError("stochastic serving: a request's image depends on its slot, or "
+                             "distinct seeds agree, or wrong launches")
+    return dict(ready_s=ready_s, single_ms=single_ms, burst_s=burst_s, burst_imgs_per_s=rate,
+                p50_ms=p50, p95_ms=p95,
+                errors=len(errors), requests=stats["requests"], batches=stats["batches"],
+                launches=launches, ddim_launches=ddim_launches, batch_busy_ms=busy,
+                batch_wall_ms=wall, batch_kernels=kernels)
+
+
+def _random_clip_state(np, seed: int = 0) -> dict:
+    """A random fp32 state dict in transformers' CLIPModel layout at
+    CLIP_B32's widths (the CPU tests' recipe, tests/test_torch_port_clip.py)."""
+    c = CLIP_B32
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, std=0.2):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    state = {"logit_scale": np.asarray(np.log(1 / 0.07), np.float32)}
+
+    def ln(key, width):
+        state[key + ".weight"] = 1.0 + normal(width, std=0.1)
+        state[key + ".bias"] = normal(width, std=0.1)
+
+    def lin(key, n_in, n_out, bias=True):
+        state[key + ".weight"] = normal(n_out, n_in, std=n_in ** -0.5)
+        if bias:
+            state[key + ".bias"] = normal(n_out, std=0.05)
+
+    def encoder(prefix, width, hidden, layers):
+        for i in range(layers):
+            base = f"{prefix}.encoder.layers.{i}"
+            ln(base + ".layer_norm1", width)
+            for p in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                lin(f"{base}.self_attn.{p}", width, width)
+            ln(base + ".layer_norm2", width)
+            lin(base + ".mlp.fc1", width, hidden)
+            lin(base + ".mlp.fc2", hidden, width)
+
+    v, t, p = "vision_model", "text_model", c["patch_size"]
+    state[f"{v}.embeddings.class_embedding"] = normal(c["vision_width"])
+    state[f"{v}.embeddings.patch_embedding.weight"] = normal(c["vision_width"], 3, p, p,
+                                                             std=(3 * p * p) ** -0.5)
+    state[f"{v}.embeddings.position_embedding.weight"] = normal(
+        (c["image_size"] // p) ** 2 + 1, c["vision_width"])
+    ln(f"{v}.pre_layrnorm", c["vision_width"])
+    encoder(v, c["vision_width"], c["vision_hidden"], c["vision_layers"])
+    ln(f"{v}.post_layernorm", c["vision_width"])
+    lin("visual_projection", c["vision_width"], c["projection_dim"], bias=False)
+    state[f"{t}.embeddings.token_embedding.weight"] = normal(c["vocab_size"], c["text_width"])
+    state[f"{t}.embeddings.position_embedding.weight"] = normal(c["text_positions"],
+                                                                c["text_width"])
+    encoder(t, c["text_width"], c["text_hidden"], c["text_layers"])
+    ln(f"{t}.final_layer_norm", c["text_width"])
+    lin("text_projection", c["text_width"], c["projection_dim"], bias=False)
+    return state
+
+
+def _random_clip_dir(torch, path: str, state: dict) -> None:
+    """A `from_pretrained`-loadable CLIP directory at CLIP_B32's widths
+    with the weights `state`: transformers' `CLIPModel`, a hand-made BPE
+    vocabulary of the prompts' words and single characters (no download;
+    tests/test_clip_labels.py's recipe) whose <|endoftext|> the text config
+    pools at, and 224x224 preprocessing."""
+    from transformers import CLIPConfig, CLIPImageProcessor, CLIPModel, CLIPProcessor, CLIPTokenizer
+
+    c = CLIP_B32
+    os.makedirs(path, exist_ok=True)
+    vocab = {"<|startoftext|>": 0, "<|endoftext|>": 1}
+    for w in "a hot cold mild place".split():
+        vocab.setdefault(w + "</w>", len(vocab))
+    for ch in "abcdefghijklmnopqrstuvwxyz":
+        vocab.setdefault(ch, len(vocab))
+        vocab.setdefault(ch + "</w>", len(vocab))
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    # from the files: transformers 5's constructor takes no vocabulary file
+    tok = CLIPTokenizer.from_pretrained(path)
+    eos = tok.eos_token_id
+    if any(eos not in row for row in tok(["a hot place", "a cold place", "a mild place"])["input_ids"]):
+        raise AssertionError(f"the hand-made tokenizer ends no prompt with its EOS id {eos}")
+    cfg = CLIPConfig(
+        text_config=dict(vocab_size=c["vocab_size"], hidden_size=c["text_width"],
+                         intermediate_size=c["text_hidden"], num_hidden_layers=c["text_layers"],
+                         num_attention_heads=c["text_heads"],
+                         max_position_embeddings=c["text_positions"],
+                         eos_token_id=eos, projection_dim=c["projection_dim"]),
+        vision_config=dict(hidden_size=c["vision_width"], intermediate_size=c["vision_hidden"],
+                           num_hidden_layers=c["vision_layers"],
+                           num_attention_heads=c["vision_heads"], image_size=c["image_size"],
+                           patch_size=c["patch_size"], projection_dim=c["projection_dim"]),
+        projection_dim=c["projection_dim"])
+    model = CLIPModel(cfg)
+    missing, unexpected = model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()},
+                                                strict=False)
+    if unexpected or any(not k.endswith("position_ids") for k in missing):
+        raise AssertionError(f"CLIP state dict against CLIPModel: missing {missing}, "
+                             f"unexpected {unexpected}")
+    model.save_pretrained(path)
+    size = c["image_size"]  # the processor's default, 224
+    improc = CLIPImageProcessor(size={"shortest_edge": size},
+                                crop_size={"height": size, "width": size})
+    CLIPProcessor(image_processor=improc, tokenizer=tok).save_pretrained(path)
+
+
+def phase_clip(torch, np, attn, tmp, vae_train):
+    """Phase 13: CLIP zero-shot labels at ViT-B/32's widths."""
+    from contextlib import nullcontext
+    from importlib.util import find_spec
+
+    import image_diffusion_torch.models.clip as clip_mod
+    from image_diffusion_torch.scripts import prepare_dataset
+    from image_diffusion_torch.scripts.prepare_dataset import zero_shot_labels
+
+    t0 = time.perf_counter()
+    state = _random_clip_state(np)
+    kw = dict(vision_heads=CLIP_B32["vision_heads"], text_heads=CLIP_B32["text_heads"],
+              patch_size=CLIP_B32["patch_size"], eos_token_id=2)
+    model = clip_mod.CLIPZeroShot.from_state_dict(state, **kw)
+    cpu_model = clip_mod.CLIPZeroShot.from_state_dict(state, **kw, device="cpu")
+    log(f"phase 13 clip: random ViT-B/32-width weights in transformers' layout built and loaded "
+        f"in {time.perf_counter() - t0:.1f} s; {sum(p.numel() for p in model.parameters()):,} "
+        f"parameters")
+
+    # 3 prompts as CLIPProcessor tokenizes them (start 49406, words, end
+    # 49407 padding to the longest); 8 images normalised as its output
+    rng = np.random.default_rng(13)
+    L = 7
+    ids = np.full((3, L), 49407, np.int64)
+    am = np.zeros((3, L), np.int64)
+    for i, n in enumerate((4, 6, 5)):
+        ids[i, 0], ids[i, 1:n - 1] = 49406, rng.integers(300, 49000, n - 2)
+        am[i, :n] = 1
+    mean = np.asarray([0.48145466, 0.4578275, 0.40821073], np.float32)[:, None, None]
+    std = np.asarray([0.26862954, 0.26130258, 0.27577711], np.float32)[:, None, None]
+
+    def pixels(n):
+        u8 = rng.integers(0, 256, (n, 3, 224, 224), dtype=np.uint8)
+        return (u8.astype(np.float32) / 255.0 - mean) / std
+
+    x8 = pixels(8)
+    ref = cpu_model.logits_per_image(x8, ids, am)
+    got = model.logits_per_image(x8, ids, am).cpu()
+    err = float((got - ref).abs().max() / ref.abs().max())
+    saved, clip_mod.no_tf32 = clip_mod.no_tf32, nullcontext
+    tf32_saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = model.logits_per_image(x8, ids, am).cpu()
+    finally:
+        clip_mod.no_tf32 = saved
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_saved
+    tf32_err = float((tf32 - ref).abs().max() / ref.abs().max())
+    log(f"phase 13 clip logits: 8 images x 3 prompts, card vs CPU in fp32 max|diff|/max "
+        f"{err:.3e} (tolerance {CLIP_REL}); with TF32 on, not held, {tf32_err:.3e}; logits range "
+        f"[{float(ref.min()):.3f}, {float(ref.max()):.3f}]")
+    if not (got.shape == (8, 3) and torch.isfinite(got).all() and err <= CLIP_REL):
+        raise AssertionError("CLIP logits on the card disagree with the CPU")
+
+    # encode_images at prepare_dataset's batch
+    x64 = torch.from_numpy(pixels(64)).cuda()
+    enc_ms = cuda_ms(lambda: model.encode_images(x64), iters=5)
+    enc_dev = device_ms(torch, lambda: model.encode_images(x64))
+    log(f"phase 13 clip encode_images: batch 64 of 224x224 in {enc_ms:.2f} ms by events "
+        f"({64 / enc_ms * 1e3:.1f} images/s; device {enc_dev:.2f} ms)")
+
+    # the classifying loop on 1,200 processed images, card vs CPU
+    batches = [pixels(min(64, CLIP_IMAGES - i)) for i in range(0, CLIP_IMAGES, 64)]
+    t0 = time.perf_counter()
+    labels = zero_shot_labels(model, batches, ids, am)
+    card_s = time.perf_counter() - t0
+    cpu_labels = zero_shot_labels(cpu_model, batches, ids, am)
+    flat = np.concatenate(batches)
+    diff = np.flatnonzero(labels != cpu_labels)
+    ties = []
+    for i in diff:
+        row = cpu_model.logits_per_image(flat[i:i + 1], ids, am)[0]
+        ties.append(float((row[int(labels[i])] - row[int(cpu_labels[i])]).abs() / row.abs().max()))
+    counts = np.bincount(labels, minlength=3).tolist()
+    log(f"phase 13 clip labels: {CLIP_IMAGES} images in batches of 64 through zero_shot_labels in "
+        f"{card_s:.2f} s on the card ({CLIP_IMAGES / card_s:.1f} images/s, host batches "
+        f"included); per class {counts}; {len(diff)} differ from the CPU's"
+        + (f", logit gaps / max|logit| {['%.2e' % g for g in ties]} (tolerance {CLIP_TIE})"
+           if ties else ""))
+    if len(labels) != CLIP_IMAGES or any(g > CLIP_TIE for g in ties):
+        raise AssertionError("CLIP labels: a card label differs from the CPU's beyond a near-tie")
+    out = dict(clip_rel_err=err, clip_tf32_rel_err=tf32_err, clip_encode_ms=enc_ms,
+               clip_encode_device_ms=enc_dev, clip_imgs_per_s=64 / enc_ms * 1e3,
+               clip_label_s=card_s, clip_label_diffs=len(diff))
+    del model, cpu_model, batches, flat
+
+    # the CLI: prepare_dataset --labels-mode clip with phase 7's checkpoint,
+    # from a CLIP directory of these weights, both backends, on images of a
+    # colour and a noise level each (uniform noise, phase 7's images, gives
+    # every image one embedding at random weights)
+    if find_spec("transformers") is None:
+        log("phase 13 clip CLI: not run: transformers (the CLI's CLIPProcessor) is not "
+            "installed on this host")
+        return out
+    clip_dir = os.path.join(tmp, "clip")
+    _random_clip_dir(torch, clip_dir, state)
+    del state
+    images_path = os.path.join(tmp, "clip_images.npy")
+    rng = np.random.default_rng(14)
+    base = rng.uniform(0, 255, (CLIP_IMAGES, 1, 1, 3))
+    noise = rng.standard_normal((CLIP_IMAGES, 128, 128, 3)) * rng.uniform(0, 80, (CLIP_IMAGES, 1, 1, 1))
+    np.save(images_path, np.clip(base + noise, 0, 255).astype(np.uint8))
+    del noise
+    runs = {}
+    for backend in ("port", "torch"):
+        out_dir = os.path.join(tmp, f"clip_{backend}")
+        attn.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        prepare_dataset.main(["diffusion", "--diffusion-images", images_path,
+                              "--vae-checkpoint", vae_train["ckpt"], "--clip", clip_dir,
+                              "--clip-backend", backend, "--out", out_dir])
+        runs[backend] = dict(seconds=time.perf_counter() - t0,
+                             flash=attn.flash_attention.launches,
+                             labels=np.load(os.path.join(out_dir, "diffusion_labels.npy")),
+                             latents=np.load(os.path.join(out_dir, "diffusion_dataset.npy")))
+    port, ref = runs["port"], runs["torch"]
+    n = len(port["labels"])
+    diff = np.flatnonzero(port["labels"] != ref["labels"])
+    ties = []
+    if len(diff):
+        from transformers import CLIPProcessor
+
+        proc = CLIPProcessor.from_pretrained(clip_dir)
+        images = np.load(images_path, mmap_mode="r")
+        text = proc(text=prepare_dataset.parse_args(["diffusion"]).classes.split(","),
+                    return_tensors="np", padding=True)
+        cli_model = clip_mod.CLIPZeroShot.from_state_dict(
+            _random_clip_state(np), **{**kw, "eos_token_id": proc.tokenizer.eos_token_id},
+            device="cpu")
+        for i in diff:
+            pixel = proc(images=[images[i]], return_tensors="np")["pixel_values"]
+            row = cli_model.logits_per_image(pixel, text["input_ids"],
+                                             text["attention_mask"])[0]
+            ties.append(float((row[int(port["labels"][i])] - row[int(ref["labels"][i])]).abs()
+                              / row.abs().max()))
+    same_latents = np.array_equal(port["latents"], ref["latents"])
+    log(f"phase 13 prepare_dataset --labels-mode clip: {n} images of 128x128, phase 7's VAE, "
+        f"a random ViT-B/32-width CLIP directory; --clip-backend port {port['seconds']:.2f} s, torch "
+        f"(transformers' CLIPModel on the card) {ref['seconds']:.2f} s (VAE encode, processor "
+        f"and files included); per class {np.bincount(port['labels'], minlength=3).tolist()}; "
+        f"{len(diff)} labels differ between the backends"
+        + (f", logit gaps / max|logit| {['%.2e' % g for g in ties]} (tolerance {CLIP_TIE})"
+           if ties else "")
+        + f"; latents equal: {same_latents}; flash launches {port['flash']} and {ref['flash']}")
+    if (n != CLIP_IMAGES or not same_latents
+            or any(g > CLIP_TIE for g in ties) or port["flash"] != -(-n // B_ENCODE)):
+        raise AssertionError("prepare_dataset --labels-mode clip: the backends disagree beyond "
+                             "a near-tie, or wrong latents or launches")
+    out.update(clip_cli_port_s=port["seconds"], clip_cli_torch_s=ref["seconds"],
+               clip_cli_label_diffs=len(diff))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1614,6 +2081,10 @@ def main() -> int:
             host_packages[package] = __import__(package).__version__
         except ImportError:
             host_packages[package] = "absent"
+    try:  # CLIP labels' processor (not imported: the port needs it only there)
+        host_packages["transformers"] = metadata.version("transformers")
+    except metadata.PackageNotFoundError:
+        host_packages["transformers"] = "absent"
     log("phase 1 host packages: " + ", ".join(f"{k} {v}" for k, v in host_packages.items()))
 
     # phase 2: build every kernel of the path
@@ -1637,7 +2108,8 @@ def main() -> int:
                                                      if entries else "no ptxas report to read"))
 
     # phase 3: kernels against their plain versions
-    sites = phase_kernels(torch, F, attn, clock_hz)
+    sites = phase_kernels(torch, F, attn, clock_hz, B_GRID)
+    serve_sites = phase_kernels(torch, F, attn, clock_hz, 2 * SERVE_BATCH)
     bwd_sites = phase_bwd_kernels(torch, F, attn, clock_hz)
     flash_batches = phase_flash_kernel(torch, F, attn, clock_hz)
 
@@ -1774,6 +2246,14 @@ def main() -> int:
 
         # phase 11: FID
         fid = phase_fid(torch, np, attn, tmp, vae_train, clis)
+        torch.cuda.empty_cache()
+
+        # phase 12: serving
+        served = phase_serve(torch, np, attn, tmp, vae_state, unet_state)
+        torch.cuda.empty_cache()
+
+        # phase 13: CLIP zero-shot labels
+        clip = phase_clip(torch, np, attn, tmp, vae_train)
 
     per_forward = {k: 2 * sum(s[k] for s in sites)
                    for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
@@ -1799,12 +2279,19 @@ def main() -> int:
                                 for k, r in rp["remat"].items()},
                              "phase 10 train_diffusion --remat dots": rp["cli_launches"][0],
                              "phase 10 preview dpm-20": rp["preview_launches"][0],
-                             "phase 11 eval_fid ddim-50": fid["eval_fid_launches"][0]},
-        "max_abs_err": max(s["max_abs_err"] for s in sites),
+                             "phase 11 eval_fid ddim-50": fid["eval_fid_launches"][0],
+                             "phase 12 served dpm-20 batch": served["launches"][0],
+                             "phase 12 served ddim-50 batch, eta 1": served["ddim_launches"][0]},
+        "max_abs_err": max(s["max_abs_err"] for s in sites + serve_sites),
         **per_forward,
         "bound_by": "operations" if bound_ops > per_forward["bound_ms"] / 2 else "bytes",
-        "per": "one UNet forward at batch 54: 14 sites, two of each shape in sites",
+        "per": "one UNet forward at batch 54: 14 sites, two of each shape in sites; "
+               "serve_per_forward: one served UNet call at 16 rows (serve_sites)",
         "sites": sites,
+        "serve_sites": serve_sites,
+        "serve_per_forward": {k: 2 * sum(s[k] for s in serve_sites)
+                              for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                        "library_device_ms", "bound_ms", "exp_ms")},
     }, {
         "name": "packed_attention_bwd",
         "route": "cuda",
@@ -1842,7 +2329,9 @@ def main() -> int:
                              "phase 8 sample_grid dpm": clis["grids"]["dpm"]["launches"][1],
                              "phase 10 preview dpm-20": rp["preview_launches"][1],
                              "phase 11 train_vae --fid-weights": fid["vae_flash"],
-                             "phase 11 eval_fid ddim-50": fid["eval_fid_launches"][1]},
+                             "phase 11 eval_fid ddim-50": fid["eval_fid_launches"][1],
+                             "phase 12 served dpm-20 batch": served["launches"][1],
+                             "phase 12 served ddim-50 batch, eta 1": served["ddim_launches"][1]},
         "max_abs_err": max(b["max_abs_err"] for b in flash_batches),
         **{k: next(b for b in flash_batches if b["B"] == B_TRAIN)[k]
            for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
@@ -1877,7 +2366,8 @@ def main() -> int:
         "vq_accum_codebook_rel_err_own_codes": vq["accum_codebook_rel_err_own_codes"],
         "remat": rp["remat"], "remat_grad_floor": rp["remat_grad_floor"],
         "remat_cli_step_ms": rp["cli_step_ms"], "preview_s": rp["preview_s"],
-        "debug_nans": rp["debug_nans"], **{k: v for k, v in fid.items() if "launches" not in k}}
+        "debug_nans": rp["debug_nans"], **{k: v for k, v in fid.items() if "launches" not in k},
+        "serve": {k: v for k, v in served.items() if "launches" not in k}, **clip}
     log(json.dumps(record))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,6 +3,8 @@ and CLI plumbing."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -16,3 +18,16 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """cuBLAS matmuls and cuDNN convolutions in full fp32 (no TF32) for the
+    block, then as they were.  TF32 keeps about three digits; the metric
+    and labelling networks (InceptionV3, CLIP) run without it."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

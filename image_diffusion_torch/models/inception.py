@@ -19,11 +19,11 @@ FID).
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..core import no_tf32
 
 
 class BasicConv2d(nn.Module):
@@ -136,17 +136,6 @@ class InceptionE(nn.Module):
         return torch.cat([self.branch1x1(x), b3, bd, self.branch_pool(pool)], 1)
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """cuDNN convolutions in full fp32 for the block, then as they were."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
-
-
 class InceptionV3Features(nn.Module):
     """(N, H, W, 3) images in [0, 1] -> (N, 2048) pool3 features, fp32."""
 
@@ -175,7 +164,7 @@ class InceptionV3Features(nn.Module):
         x = F.interpolate(x, size=(299, 299), mode="bilinear", align_corners=False,
                           antialias=False)
         x = x * 2.0 - 1.0
-        with _no_tf32():
+        with no_tf32():
             x = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(self.Conv2d_1a_3x3(x)))
             x = F.max_pool2d(x, 3, stride=2)
             x = self.Conv2d_4a_3x3(self.Conv2d_3b_1x1(x))

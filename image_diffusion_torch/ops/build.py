@@ -5,6 +5,10 @@ library with a plain C interface, loaded with `ctypes`.  Libraries go to
 `build/torch_kernels/` at the repository root, named with a hash of the
 source, the headers beside it (`csrc/*.cuh`) and the flags, so an edited
 source or header rebuilds and a stale library is never loaded.  Building happens at first use, never at import.
+Threads of one process build and load one at a time (a server's warm-up
+and its worker may both reach a library first); each nvcc writes to a
+temporary file named by process and thread, renamed into place when it
+succeeds.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -22,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
 # nvcc's output (ptxas' registers, shared memory and spills per kernel) of
 # each source built by this process
 BUILD_OUTPUT: dict[str, str] = {}
@@ -53,13 +59,18 @@ def build(names: list[str]) -> list[Path]:
     """Compile every named source that has no library yet, all `nvcc`
     processes started together; raises with the compiler output if one
     fails.  Returns the library paths."""
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names: list[str]) -> list[Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = [library_path(n) for n in names]
     jobs = []
     for name, path in zip(names, paths):
         if path.exists():
             continue
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         jobs.append((name, path, tmp, proc))
@@ -68,6 +79,7 @@ def build(names: list[str]) -> list[Path]:
         out, _ = proc.communicate()
         BUILD_OUTPUT[name] = out.decode(errors="replace")
         if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{BUILD_OUTPUT[name]}")
             continue
         os.replace(tmp, path)
@@ -79,8 +91,12 @@ def build(names: list[str]) -> list[Path]:
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built first if needed."""
     lib = _LOADED.get(name)
-    if lib is None:
-        (path,) = build([name])
-        lib = ctypes.CDLL(str(path))
-        _LOADED[name] = lib
-    return lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            (path,) = _build([name])
+            lib = ctypes.CDLL(str(path))
+            _LOADED[name] = lib
+        return lib

@@ -11,8 +11,8 @@ Grid semantics: every class at every guidance scale, scale-major rows
 (row s holds classes 0..K-1 at scale s).
 
 Randomness comes from an explicit `torch.Generator` (or, for
-`sample_batch`, an explicit step-noise block), since torch cannot
-reproduce the JAX package's random streams.
+`sample_batch`, an explicit step-noise block or one generator per row),
+since torch cannot reproduce the JAX package's random streams.
 """
 
 from __future__ import annotations
@@ -78,8 +78,9 @@ class DiffusionPipeline:
     def sample_batch(self, labels, cfg_scales, x_init, sampler: str = "dpm",
                      num_inference_steps: int | None = None, eta: float = 0.0,
                      generator: torch.Generator | None = None,
-                     noise: torch.Tensor | None = None, output: str = "float32",
-                     progress: bool = False) -> torch.Tensor:
+                     noise: torch.Tensor | None = None,
+                     row_generators: Sequence[torch.Generator] | None = None,
+                     output: str = "float32", progress: bool = False) -> torch.Tensor:
         """Sample one explicit batch: per-row class labels, guidance scales
         and initial latents (B, h, w, z) -> (B, H, W, 3) images in [-1, 1]
         (`output="float32"`) or as uint8 pixels (`output="uint8"`).
@@ -88,8 +89,14 @@ class DiffusionPipeline:
         "dpm" (DPM-Solver++(2M)) over `num_inference_steps` (default 50 for
         ddim, 20 for dpm).  The stochastic samplers (ddpm; ddim with
         eta > 0) take step noise from `noise`, a (T, B, h, w, z) block whose
-        row i is used at step i, or else draw it from `generator`.
-        `progress` shows a per-step bar (`core.progress`)."""
+        row i is used at step i; or else from `row_generators`, B generators
+        on the pipeline's device, row i's (h, w, z) noise drawn from
+        generator i alone at each step, in sequence after whatever the
+        caller drew from it before (serving draws the row's initial latent
+        first), so a row's noise at step s depends on its generator's seed
+        and s only, never on its batch or slot; or else, one batch-shaped
+        draw a step, from `generator`.  `progress` shows a per-step bar
+        (`core.progress`)."""
         if output not in ("float32", "uint8"):
             raise ValueError(f"unknown output {output!r}; expected 'float32' or 'uint8'")
         dev = self.device
@@ -99,6 +106,8 @@ class DiffusionPipeline:
         scales = torch.as_tensor(cfg_scales, dtype=torch.float32).to(dev).reshape(B, 1, 1, 1)
         if noise is not None:
             noise = torch.as_tensor(noise, dtype=torch.float32).to(dev)
+        if row_generators is not None and len(row_generators) != B:
+            raise ValueError(f"{len(row_generators)} row generators for a batch of {B}")
 
         ctx = torch.cat([labels, torch.zeros_like(labels)])
         mask = torch.cat([torch.ones(B, 1), torch.zeros(B, 1)]).to(dev)
@@ -112,8 +121,12 @@ class DiffusionPipeline:
         def step_noise(i):
             if noise is not None:
                 return noise[i]
+            if row_generators is not None:
+                return torch.stack([torch.randn(x.shape[1:], generator=g, device=dev)
+                                    for g in row_generators])
             if generator is None:
-                raise ValueError(f"sampler {sampler!r} needs `noise` or a `generator`")
+                raise ValueError(f"sampler {sampler!r} needs `noise`, `row_generators` or a "
+                                 "`generator`")
             return torch.randn(x.shape, generator=generator, device=dev)
 
         def tvec(t):

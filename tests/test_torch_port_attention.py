@@ -143,6 +143,45 @@ def test_library_name_follows_the_source_and_the_headers(tmp_path, monkeypatch):
     assert build.library_path("a") not in {first, second, third}
 
 
+def test_first_build_is_safe_under_threads(tmp_path, monkeypatch):
+    """Two threads building one source together (a server's warm-up and
+    its worker on a fresh machine) start one compile, and no temporary
+    file is left; loading waits for the same lock.  A fake nvcc counts its
+    runs and writes its output after a pause."""
+    import threading
+
+    from image_diffusion_torch.ops import build
+
+    count = tmp_path / "count"
+    (tmp_path / "bin").mkdir()
+    fake = tmp_path / "bin" / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    f"echo run >> {count}\n"
+                    "sleep 0.5\n"
+                    'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; shift; done\n'
+                    'echo lib > "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    results, errors = [], []
+
+    def call():
+        try:
+            results.append(build.build(["packed_attention"]))
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=call) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not errors and len(results) == 2 and results[0] == results[1]
+    assert count.read_text().splitlines() == ["run"]
+    assert [p.name for p in (tmp_path / "out").iterdir()] == [results[0][0].name]
+    assert results[0][0].read_text() == "lib\n"
+
+
 def test_packed_kernels_share_one_header():
     from image_diffusion_torch.ops import build
 

@@ -285,10 +285,128 @@ def test_prepare_dataset_diffusion_matches_jax(jax_ckpts, images_npy, tmp_path):
     np.testing.assert_array_equal(labels, jax_labels)
 
 
-def test_prepare_dataset_clip_labels_are_not_ported(jax_ckpts, images_npy, tmp_path):
-    with pytest.raises(SystemExit, match="--labels-mode random"):
+@pytest.fixture(scope="module")
+def tiny_clip(tmp_path_factory):
+    """A from_pretrained-loadable CLIP directory: a random tiny CLIPModel,
+    a hand-made BPE vocabulary and an image processor, built offline (a
+    copy of tests/test_clip_labels.py's `tiny_clip` fixture, with the
+    text config's eos_token_id set to the vocabulary's <|endoftext|>, so
+    each prompt pools at its own EOS: with the default id, absent from
+    this vocabulary, every prompt pools at its first token and all three
+    embeddings are one)."""
+    import json
+
+    from transformers import (
+        CLIPConfig,
+        CLIPImageProcessor,
+        CLIPModel,
+        CLIPProcessor,
+        CLIPTokenizer,
+    )
+
+    d = tmp_path_factory.mktemp("tiny_clip")
+    # minimal CLIP-BPE vocab: specials, whole words for the prompts, and
+    # single chars (plain + word-final </w>) as fallback
+    vocab = {"<|startoftext|>": 0, "<|endoftext|>": 1}
+    for w in "a hot cold mild place".split():
+        vocab.setdefault(w + "</w>", len(vocab))
+    for ch in "abcdefghijklmnopqrstuvwxyz":
+        vocab.setdefault(ch, len(vocab))
+        vocab.setdefault(ch + "</w>", len(vocab))
+    with open(d / "vocab.json", "w") as f:
+        json.dump(vocab, f)
+    with open(d / "merges.txt", "w") as f:
+        f.write("#version: 0.2\n")
+
+    tok = CLIPTokenizer(vocab_file=str(d / "vocab.json"), merges_file=str(d / "merges.txt"))
+    cfg = CLIPConfig(
+        text_config=dict(vocab_size=tok.vocab_size, hidden_size=32, intermediate_size=64,
+                         num_hidden_layers=2, num_attention_heads=2,
+                         max_position_embeddings=16, projection_dim=16,
+                         eos_token_id=vocab["<|endoftext|>"]),
+        vision_config=dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                           num_attention_heads=2, image_size=32, patch_size=8,
+                           projection_dim=16),
+        projection_dim=16,
+    )
+    torch.manual_seed(0)
+    model = CLIPModel(cfg)
+    improc = CLIPImageProcessor(size={"shortest_edge": 32}, crop_size={"height": 32, "width": 32})
+    CLIPProcessor(image_processor=improc, tokenizer=tok).save_pretrained(str(d))
+    model.save_pretrained(str(d))
+    return str(d)
+
+
+CLIP_CLASSES = "a hot place,a cold place,a mild place"
+
+
+@pytest.fixture(scope="module")
+def jax_clip_run(jax_ckpts, images_npy, tiny_clip, tmp_path_factory):
+    """JAX's script with CLIP labels (its default `jax` backend) -> its
+    output directory."""
+    out = tmp_path_factory.mktemp("clip_jax")
+    run_jax("prepare_dataset.py", "diffusion", "--diffusion-images", images_npy,
+            "--vae-checkpoint", jax_ckpts["kl"], "--clip", tiny_clip, "--batch-size", 4,
+            "--classes", CLIP_CLASSES, "--out", out)
+    return out
+
+
+@pytest.mark.parametrize("backend", ["port", "torch"])
+def test_prepare_dataset_clip_labels_match_jax(jax_ckpts, images_npy, tiny_clip, jax_clip_run,
+                                               tmp_path, backend):
+    """`--labels-mode clip` (the default) on the same images, VAE and tiny
+    offline CLIP: the labels of JAX's script and of transformers' eager
+    model, the latents within BF16_REL as with random labels."""
+    prepare_dataset.main(["diffusion", "--diffusion-images", images_npy, "--vae-checkpoint",
+                          jax_ckpts["kl"], "--clip", tiny_clip, "--clip-backend", backend,
+                          "--batch-size", "4", "--classes", CLIP_CLASSES, "--out",
+                          str(tmp_path), "--device", "cpu"])
+    labels = np.load(tmp_path / "diffusion_labels.npy")
+    jax_labels = np.load(jax_clip_run / "diffusion_labels.npy")
+    assert labels.shape == (7,) and labels.dtype == jax_labels.dtype == np.uint8
+    np.testing.assert_array_equal(labels, jax_labels)
+
+    from transformers import CLIPModel, CLIPProcessor
+
+    model = CLIPModel.from_pretrained(tiny_clip).eval()
+    proc = CLIPProcessor.from_pretrained(tiny_clip)
+    with torch.no_grad():
+        out = model(pixel_values=proc(images=list(np.load(images_npy)),
+                                      return_tensors="pt")["pixel_values"],
+                    **proc(text=CLIP_CLASSES.split(","), return_tensors="pt", padding=True))
+    np.testing.assert_array_equal(labels, out.logits_per_image.argmax(-1).numpy())
+
+    got, ref = (np.load(d / "diffusion_dataset.npy").astype(np.float32)
+                for d in (tmp_path, jax_clip_run))
+    assert got.shape == ref.shape == (7, 8, 8, 6)
+    assert np.abs(got - ref).max() <= BF16_REL * np.abs(ref).max()
+
+
+def test_zero_shot_labels_take_the_argmax_of_each_batch():
+    """The classifying loop on processed pixel batches and token ids: the
+    argmax of `logits_per_image` row by row, whatever the batch split."""
+    from image_diffusion_torch.models.clip import CLIPZeroShot
+    from test_torch_port_clip import TINY, random_batch, random_clip_state
+
+    clip = CLIPZeroShot.from_state_dict(random_clip_state(6, **TINY), vision_heads=2,
+                                        text_heads=2, patch_size=8, eos_token_id=63,
+                                        device="cpu")
+    pixel, ids, am = random_batch(6, eos_id=63, b=7)
+    want = clip.logits_per_image(pixel, ids, am).argmax(-1).numpy()
+    got = prepare_dataset.zero_shot_labels(clip, [pixel[:4], pixel[4:]], ids, am)
+    assert got.dtype == np.uint8 and len(set(want.tolist())) > 1
+    np.testing.assert_array_equal(got, want)
+
+
+def test_prepare_dataset_clip_labels_need_transformers(jax_ckpts, images_npy, tmp_path,
+                                                       monkeypatch):
+    """Without transformers the CLIP mode exits naming it, before any
+    latent is extracted; it never falls back to random labels."""
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    with pytest.raises(SystemExit, match="transformers"):
         prepare_dataset.main(["diffusion", "--diffusion-images", images_npy, "--vae-checkpoint",
                               jax_ckpts["kl"], "--out", str(tmp_path), "--device", "cpu"])
+    assert not os.listdir(tmp_path)
 
 
 # ------------------------------------------------------------- sample_grid
