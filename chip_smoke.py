@@ -13,20 +13,22 @@ Phases, one status line each; any failure exits non-zero:
      registers per kernel; a kernel that spills registers fails the phase;
   3. the forward kernel and the row sums it hands to the backward against
      their plain PyTorch version at the shapes the sampling grid gives it
-     (batch 54, bf16) and at the served batch's (16 rows: 8 conditional and
-     8 unconditional), with times of the kernel, the plain version and one
+     (batch 54, bf16), at the served batch's (16 rows: 8 conditional and
+     8 unconditional) and at a phase 14 grid shard's (28 rows), with times of the kernel, the plain version and one
      PyTorch library call, the card's bound and the time its
      special-function units need for the exponentials;
   3b. the backward kernels against their plain version at the same site
-     shapes at the training batch (48, bf16, random dO), per operand, both
+     shapes at the training batch (48, bf16, random dO) and at a phase 14
+     rank's half of it (24), per operand, both
      called alone (the wrapper launches the forward first) and through
      the forward operator's gradient with its saved output and row sums, which
      is what training runs, with the same times (library: SDPA's backward
      through autograd);
   3c. the flash kernel against its plain version at the VAE's attention
      site (one head, N 1024, D 384) at batches 27 (the grid's decode), 24
-     (training's micro-batch at grad_accum 2), 48 (training), 64
-     (prepare_dataset's batch) and 8 (the server's decode), with the same
+     (training's micro-batch at grad_accum 2, and a phase 14 rank's rows),
+     48 (training), 64 (prepare_dataset's batch), 8 (the server's decode)
+     and 14 (a phase 14 grid shard's decode), with the same
      times (library: SDPA, its backend named),
      the gradient through `FlashAttention` against autograd of the plain
      version, and the device time of that gradient (the einsum path's
@@ -113,7 +115,24 @@ Phases, one status line each; any failure exits non-zero:
      against the CPU's labels (a difference must be a near-tie); where
      transformers is installed, `prepare_dataset --labels-mode clip` with
      phase 7's VAE on 1,200 images from a CLIP directory of those weights
-     written by the script, `--clip-backend port` against `torch`.
+     written by the script, `--clip-backend port` against `torch`;
+  14. the multi-device layer on the one card: (a) under `torchrun
+     --nproc-per-node 1` over NCCL, one data-parallel step of the shipped
+     UNet at batch 48 against the plain step from a deep copy of one
+     state, bit for bit, then 5 steps of `train_diffusion --data-parallel
+     1`; two NCCL ranks on the one card refused; (b) two ranks sharing the
+     card over gloo (CUDA tensors), each on 24 of 48 rows: one UNet step
+     replicated, one under FSDP (data 1 x model 2), and one KL and one VQ
+     stage-1 step with the discriminator active, each against the
+     one-process step of 48 from the same state (losses, gradient norms
+     before the clip, clipped gradients, Adam's second moments, BatchNorm
+     and codebook statistics), the ranks' parameters bit-equal, launches per rank, and the gloo all-reduce's
+     time (the cost of gloo on one card, not a scaling figure); (c) the
+     27-image dpm-20 and ddpm-1000 grids sharded in one process over
+     ["cuda:0", "cuda:0"] (28 padded rows) against the unsharded grids,
+     each shard bit-equal to sampling its rows alone, with wall time and
+     idle share beside phase 5's, and `sample_grid --data-parallel 1`.
+     The ranks are this script under `--rank-worker`.
 Then a JSON line of kernel records, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
@@ -123,6 +142,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -135,6 +155,8 @@ EXP_PER_CLOCK = 16 * 132  # special-function results a clock: 16 on each of 132 
 B_GRID = 54               # 27 images x 2 (conditional + unconditional rows)
 B_TRAIN = 48              # the shipped config's batch_size
 B_ENCODE = 64             # prepare_dataset's default --batch-size
+B_RANK = B_TRAIN // 2     # a UNet or stage-1 step's rows on each of phase 14's two ranks
+B_SHARD = 2 * 14          # a UNet call on each of phase 14's two grid shards: 14 of 28 padded images
 TRAIN_STEPS = 25          # trainer steps in phase 6: 5 flushes of log_interval 5
 CONFIG = "configs/diff-kl-lin-32x32.yaml"
 VAE_CONFIG = "configs/vae-kl-32x32.yaml"
@@ -211,6 +233,37 @@ CLIP_IMAGES = 1200
 # largest |logit|
 CLIP_REL = 1e-4
 CLIP_TIE = 1e-4
+# phase 14: a data-parallel step on the card (2 ranks of 24 rows, or FSDP)
+# against the one-process step of 48 from one state, both bf16 compute:
+# the losses' relative difference (means over 48 x 3,072 or more terms,
+# each rounded in bf16 at another row count), and BatchNorm's running
+# statistics and the codebook after the step, max|diff| / max (bf16 batch
+# statistics over 24 + 24 against 48 rows; phase 9 (e) found 1.8e-4 on the
+# codebook when 89 tokens changed code).  The gradients' global norms
+# before the clip (`unet/grad`, `vae/vae_grad`, `gan/disc_grad`) are held
+# to DP_LOSS_REL as well: the clip fires in these steps (norms ~2.4 and ~20
+# against clip_grad 1), so the clipped gradients and Adam's moments do not
+# depend on the gradient's scale, and the norm is what shows a gradient
+# averaged by a wrong factor (2x gives 1.0).  The clipped gradients are held
+# to phase 6's card-vs-CPU bar GRAD_REL_L2, of the same kind, and Adam's
+# second moments, the clipped gradients squared, to twice it (squaring
+# doubles a relative error), both relative L2.  The parameters are not held:
+# Adam's first update moves an element by about the learning rate in its
+# gradient's sign, so any two first steps differ by up to 2 x lr wherever a
+# near-zero gradient element changes sign; they follow from the moments
+DP_LOSS_REL = 1e-2
+DP_NU_REL_L2 = 2 * GRAD_REL_L2
+DP_STATS_REL = 1e-2
+# the metrics that are a gradient's global norm before the clip
+GRAD_NORMS = ("unet/grad", "vae/vae_grad", "gan/disc_grad")
+# phase 14: the grid sharded over two shards of the card (28 UNet rows a
+# call) against the unsharded grid (54): relative L2.  Each shard is held
+# bit-equal to `sample_batch` of its own rows (dpm-20); against the
+# 54-row grid the rows see cuBLAS and cuDNN at another row count, and the
+# random-weight UNet with guidance up to 9 magnifies that bf16 rounding
+# (1.0e-1 for dpm-20 on an H100 80GB HBM3 at 700 W); a row that took
+# another row's label, scale or noise gives O(1)
+SHARD_GRID_REL = 0.5
 # csrc/<name>.cu of every kernel the paths run
 KERNEL_SOURCES = ["packed_attention", "packed_attention_bwd", "flash_attention"]
 
@@ -223,8 +276,6 @@ def ptxas_summary(text: str) -> tuple[list[str], int]:
     """(["kernel<template args> registers, spill stores/loads", ...] for each
     entry function in ptxas' verbose output, the spill bytes of all of them
     together)."""
-    import re
-
     out, name, spill, spilled = [], None, "", 0
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -358,15 +409,15 @@ def phase_kernels(torch, F, attn, clock_hz, B):
     return sites
 
 
-def phase_bwd_kernels(torch, F, attn, clock_hz):
+def phase_bwd_kernels(torch, F, attn, clock_hz, B):
     """Phase 3b: the backward kernels vs their plain version and SDPA's
-    backward per site, at the training batch: called alone, and through
-    the forward operator's gradient with its saved output and row sums."""
+    backward per site, at batch B: called alone, and through the forward
+    operator's gradient with its saved output and row sums."""
     sites = []
     for N, C, h in SITES:
         d = C // h
         g = torch.Generator(device="cuda").manual_seed(2000 * N + C)
-        q, k, v, do = (torch.randn(B_TRAIN, N, C, generator=g, device="cuda").to(torch.bfloat16)
+        q, k, v, do = (torch.randn(B, N, C, generator=g, device="cuda").to(torch.bfloat16)
                        for _ in range(4))
         alone = attn.packed_attention_bwd(q, k, v, do, h)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -387,10 +438,10 @@ def phase_bwd_kernels(torch, F, attn, clock_hz):
             rels[name] = errs[name] / float(b.float().abs().max())
         del alone, got, ref, leaves
         out, sums = attn.packed_attention_with_row_sum(q, k, v, h)
-        heads = [t.view(B_TRAIN, N, h, d).transpose(1, 2).contiguous().requires_grad_()
+        heads = [t.view(B, N, h, d).transpose(1, 2).contiguous().requires_grad_()
                  for t in (q, k, v)]
         lib_out = F.scaled_dot_product_attention(*heads)
-        do_heads = do.view(B_TRAIN, N, h, d).transpose(1, 2).contiguous()
+        do_heads = do.view(B, N, h, d).transpose(1, 2).contiguous()
         # what the forward operator's gradient calls: the kernels on the saved statistics
         ms = cuda_ms(lambda: attn.packed_attention_bwd(q, k, v, do, h, out, sums), iters=20)
         by_kernel = device_profile(torch, lambda: attn.packed_attention_bwd(q, k, v, do, h, out, sums),
@@ -406,18 +457,18 @@ def phase_bwd_kernels(torch, F, attn, clock_hz):
                                                                   retain_graph=True))
         del lib_out, heads, out, sums
         # five products; q, k, v, dO read and dq, dk, dv written once
-        flops, nbytes = 10 * B_TRAIN * N * N * C, 7 * B_TRAIN * N * C * 2
+        flops, nbytes = 10 * B * N * N * C, 7 * B * N * C * 2
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        site = dict(N=N, C=C, d=d, max_abs_err=max(errs.values()), max_abs_err_by_operand=errs,
+        site = dict(B=B, N=N, C=C, d=d, max_abs_err=max(errs.values()), max_abs_err_by_operand=errs,
                     tol_ratio_by_operand=ratios, rel_max_by_operand=rels, ms=ms, device_ms=dev_ms,
                     dq_device_ms=dev_ms - dkdv_dev_ms, dkdv_device_ms=dkdv_dev_ms,
                     alone_ms=alone_ms, plain_ms=plain_ms, library_ms=lib_ms,
                     library_device_ms=lib_dev_ms, bound_ms=bound_ms,
                     bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
                     # the dq and the dk/dv kernel each take one exp2 per score
-                    exp_ms=exp_ms(2 * B_TRAIN * h * N * N, clock_hz))
+                    exp_ms=exp_ms(2 * B * h * N * N, clock_hz))
         sites.append(site)
-        log(f"phase 3b bwd kernel N={N:5d} C={C} d={d}: max|err| "
+        log(f"phase 3b bwd kernel B={B} N={N:5d} C={C} d={d}: max|err| "
             + " ".join(f"{n} {errs[n]:.3e}" for n in errs) + "; tolerance ratio "
             + " ".join(f"{n} {ratios[n]:.3f}" for n in ratios) + "; max|err|/max|plain| "
             + " ".join(f"{n} {rels[n]:.3e}" for n in rels) + f" (tolerance {BWD_REL_MAX})"
@@ -429,25 +480,25 @@ def phase_bwd_kernels(torch, F, attn, clock_hz):
             f"exponentials {site['exp_ms']:.4f} ms")
         if launched != (1, 1):
             raise AssertionError(f"the packed operators launched {launched} forward and backward "
-                                 f"kernels at N={N} C={C}, expected one each")
+                                 f"kernels at B={B} N={N} C={C}, expected one each")
         if not (same and max(ratios.values()) <= 1.0 and max(rels.values()) < BWD_REL_MAX):
-            raise AssertionError(f"backward kernel disagrees with its plain version at N={N} C={C}")
+            raise AssertionError(f"backward kernel disagrees with its plain version at B={B} N={N} "
+                                 f"C={C}")
     return sites
 
 
 def phase_flash_kernel(torch, F, attn, clock_hz):
     """Phase 3c: the flash kernel against its plain version at the VAE's
     attention site (one head, N = 32*32, D = 384) at the grid's decode batch,
-    the training batch and its half, prepare_dataset's batch and the server's
-    batch, with times, and the
-    gradient through
-    `FlashAttention` against autograd of the plain version."""
+    the training batch and a rank's half of it, prepare_dataset's batch, the
+    server's batch and a grid shard's decode, with times, and the gradient
+    through `FlashAttention` against autograd of the plain version."""
     from torch.nn.attention import SDPBackend
 
     N, D = 1024, 384
     scale = 1.0 / D ** 0.5
     batches = []
-    for B in (B_GRID // 2, B_TRAIN // 2, B_TRAIN, B_ENCODE, SERVE_BATCH):
+    for B in (B_GRID // 2, B_RANK, B_TRAIN, B_ENCODE, SERVE_BATCH, B_SHARD // 2):
         g = torch.Generator(device="cuda").manual_seed(3000 + B)
         q, k, v = (torch.randn(B, 1, N, D, generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
@@ -1734,7 +1785,7 @@ def phase_serve(torch, np, attn, tmp, vae_state, unet_state):
     # (b) the engine in this process: launches, idle share, determinism
     def engine(**kw):
         args = dict(model=path, batch_size=SERVE_BATCH, linger_ms=40.0, sampler="dpm", steps=20,
-                    eta=0.0, device="cuda")
+                    eta=0.0, device="cuda", data_parallel=None)
         e = serve.Engine(argparse.Namespace(**{**args, **kw}))
         e.warmup()
         return e
@@ -2043,9 +2094,449 @@ def phase_clip(torch, np, attn, tmp, vae_train):
     return out
 
 
+def _torchrun(nproc: int, case: str, work: str, timeout: float):
+    """This script's `--rank-worker case work` on `nproc` local ranks under
+    torchrun, in a session of its own that is killed whole at `timeout`
+    -> (exit code, the launcher's and the ranks' output)."""
+    import signal
+
+    log_path = os.path.join(work, f"{case}.log")
+    with open(log_path, "w") as out:
+        p = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                              "--nproc-per-node", str(nproc), os.path.abspath(__file__),
+                              "--rank-worker", case, work],
+                             stdout=out, stderr=subprocess.STDOUT, start_new_session=True,
+                             env={**os.environ, "PYTHONFAULTHANDLER": "1"})
+        try:
+            rc = p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = 124
+        finally:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)  # the launcher and every rank
+            except ProcessLookupError:
+                pass
+            p.wait()
+    with open(log_path) as f:
+        return rc, f.read()
+
+
+def _flat(tensors) -> "object":
+    import torch
+
+    from image_diffusion_torch.parallel.fsdp import full
+
+    return torch.cat([full(t).detach().float().flatten().cpu() for t in tensors])
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    return hashlib.sha256(_flat(tensors).numpy().tobytes()).hexdigest()
+
+
+def _compare_step(torch, got: dict, ref: dict, models) -> dict:
+    """A rank's step (`got`) against the one-process step (`ref`), each a
+    dict of metrics and, by model, the flat clipped gradients and Adam's
+    flat second moments: the errors `phase_parallel` holds."""
+    def rel(k):
+        return abs(got["metrics"][k] - ref["metrics"][k]) / max(abs(ref["metrics"][k]), 1e-12)
+
+    out = {"loss_rel": {k: rel(k) for k in ref["metrics"] if k.endswith("loss")},
+           "norm_rel": {k: rel(k) for k in GRAD_NORMS if k in ref["metrics"]}}
+    for model in models:
+        for k in ("grad", "nu"):
+            a, b = got[model][k], ref[model][k]
+            out[f"{model}_{k}_rel_l2"] = float((a - b).norm() / b.norm())
+    for k in ("disc_stats", "codebook"):
+        if k in ref:
+            out[f"{k}_rel_max"] = float((got[k] - ref[k]).abs().max() / ref[k].abs().max())
+    return out
+
+
+def _worker_nccl1(torch, np, attn, work: str) -> dict:
+    """Phase 14 (a), world 1 over NCCL under torchrun: one DP step of the
+    shipped UNet at batch 48 against the plain step from a deep copy of one
+    state, bit for bit; then `train_diffusion` through its `main`."""
+    import copy
+
+    from image_diffusion_torch.core.config import DiffusionConfig
+    from image_diffusion_torch.models import build_unet
+    from image_diffusion_torch.ops import schedule as S
+    from image_diffusion_torch.parallel.mesh import initialize_distributed, make_mesh
+    from image_diffusion_torch.scripts.train_diffusion import main as train_main
+    from image_diffusion_torch.training.diffusion_trainer import (Optimizer, TrainState,
+                                                                  make_train_step)
+
+    device = initialize_distributed()
+    backend = torch.distributed.get_backend()
+    mesh = make_mesh()
+    cfg = DiffusionConfig.from_yaml(CONFIG)
+    tc = cfg.train
+    unet = build_unet(cfg.arch, tc.compute_dtype, device, torch.Generator().manual_seed(0),
+                      param_dtype=torch.float32, remat=tc.remat).train()
+    plain_state = TrainState(unet, Optimizer(unet.parameters(), tc.learning_rate,
+                                             tc.warmup_steps, tc.clip_grad))
+    dp_state = copy.deepcopy(plain_state)
+    sc = cfg.schedule
+    sched = S.make_schedule(sc.num_steps, sc.beta_start, sc.beta_end, sc.noise_type, device=device)
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn(B_TRAIN, 32, 32, 6, generator=g).half().to(device)
+    c = torch.randint(0, 3, (B_TRAIN,), generator=g).to(device)
+    kw = dict(reparametrize=True, grad_accum=tc.grad_accum)
+    steps = {"plain": make_train_step(sched, tc.cond_drop_prob, **kw),
+             "dp": make_train_step(sched, tc.cond_drop_prob, **kw, shard=mesh.data_shard())}
+    metrics, launches = {}, {}
+    for name, state in (("plain", plain_state), ("dp", dp_state)):
+        attn.packed_attention.launches = attn.packed_attention_bwd.launches = 0
+        metrics[name] = steps[name](state, x, c, torch.Generator(device=device).manual_seed(3))
+        torch.cuda.synchronize()
+        launches[name] = [attn.packed_attention.launches, attn.packed_attention_bwd.launches]
+    (mu_a, nu_a), (mu_b, nu_b) = plain_state.optimizer.moments(), dp_state.optimizer.moments()
+    equal = (all(torch.equal(metrics["plain"][k], metrics["dp"][k]) for k in metrics["plain"])
+             and all(torch.equal(a, b) for a, b in zip(
+                 plain_state.optimizer.params + mu_a + nu_a,
+                 dp_state.optimizer.params + mu_b + nu_b)))
+    del plain_state, dp_state, unet
+
+    # train_diffusion through its main, under this launch (world 1, NCCL)
+    rng = np.random.default_rng(14)
+    n = 5 * B_TRAIN
+    np.save(os.path.join(work, "latents.npy"),
+            rng.standard_normal((n, 32, 32, 6), dtype=np.float32).astype(np.float16))
+    np.save(os.path.join(work, "labels.npy"), rng.integers(0, 3, n).astype(np.uint8))
+    config = _diffusion_config(work, "nccl1", os.path.join(work, "latents.npy"),
+                               os.path.join(work, "labels.npy"))
+    attn.packed_attention.launches = attn.packed_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    trainer = train_main(["--config", config, "--experiment-name", "nccl1", "--no-mlflow",
+                          "--data-parallel", "1"])
+    torch.cuda.synchronize()
+    return dict(backend=backend, world=1, bit_equal=equal,
+                loss=float(metrics["dp"]["unet/loss"]), grad=float(metrics["dp"]["unet/grad"]),
+                step_launches=launches, cli_steps=trainer.state.step,
+                cli_s=time.perf_counter() - t0,
+                cli_launches=[attn.packed_attention.launches, attn.packed_attention_bwd.launches],
+                cli_ckpt=os.path.exists(os.path.join(work, "ckpt", "nccl1", "unet-epoch-00.ckpt")))
+
+
+def _worker_gloo2(torch, np, attn, work: str) -> dict:
+    """Phase 14 (b), two ranks on one card over gloo (CUDA tensors): one
+    step of the UNet replicated and one under FSDP (data 1 x model 2), and
+    one stage-1 step of each bottleneck with the discriminator active, each
+    rank on 24 of 48 rows; rank 0 also takes the one-process step from the
+    same state and batch and compares."""
+    import torch.distributed as dist
+
+    from image_diffusion_torch.core.config import DiffusionConfig, VAEConfig
+    from image_diffusion_torch.core.logging import BasicLogger
+    from image_diffusion_torch.core.metrics import MetricHolder
+    from image_diffusion_torch.models.lpips import LPIPS
+    from image_diffusion_torch.parallel.fsdp import local
+    from image_diffusion_torch.parallel.mesh import (all_reduce_mean_, initialize_distributed,
+                                                     make_mesh)
+    from image_diffusion_torch.training.data import ArrayDataset
+    from image_diffusion_torch.training.diffusion_trainer import DiffusionTrainer
+    from image_diffusion_torch.training.vae_trainer import VAETrainer
+
+    device = initialize_distributed("cuda:0", backend="gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dirs = dict(checkpoints_dir=os.path.join(work, "ckpt"), logs_dir=os.path.join(work, "logs"),
+                plot_set=os.path.join(work, "no-plot-set.npy"))
+    logger = BasicLogger(os.path.join(work, "logs"), f"gloo{rank}", True, 5)
+    rng = np.random.default_rng(15)
+    latents = rng.standard_normal((B_TRAIN, 32, 32, 6), dtype=np.float32).astype(np.float16)
+    labels = rng.integers(0, 3, B_TRAIN).astype(np.uint8)
+    images = rng.integers(0, 256, (B_TRAIN, 128, 128, 3), dtype=np.uint8)
+    out = dict(backend=dist.get_backend(), world=world, rank=rank)
+
+    def run(kind: str, cfg, mesh, **kw) -> dict:
+        """One step of a fresh trainer (seeded state) on this rank's rows:
+        metrics, flat gradients and parameters by model, launches, ms."""
+        if kind == "unet":
+            tr = DiffusionTrainer(cfg, ArrayDataset(latents, labels), logger, MetricHolder(5),
+                                  device=device, mesh=mesh, **kw)
+            batch = (torch.from_numpy(latents).to(device), torch.from_numpy(labels).to(device))
+            models = {"unet": tr.state.optimizer}
+        else:
+            tr = VAETrainer(cfg, ArrayDataset(images), None, logger, MetricHolder(5), device=device,
+                            mesh=mesh, **kw)
+            batch = (torch.from_numpy(images).to(device),)
+            models = {"vae": tr.state.vae_opt, "disc": tr.state.disc_opt}
+        if tr.shard is not None:
+            rows = torch.from_numpy(tr.shard.rows(B_TRAIN, cfg.train.grad_accum)).to(device)
+            batch = tuple(b[rows] for b in batch)
+        gen = torch.Generator(device=device).manual_seed(3)
+        extra = {} if kind == "unet" else {"disc_active": True}
+        attn.packed_attention.launches = attn.packed_attention_bwd.launches = 0
+        attn.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = tr.train_step(tr.state, *batch, gen, **extra)
+        torch.cuda.synchronize()
+        res = dict(ms=(time.perf_counter() - t0) * 1e3,
+                   launches=[attn.packed_attention.launches, attn.packed_attention_bwd.launches,
+                             attn.flash_attention.launches],
+                   metrics={k: float(v) for k, v in metrics.items()})
+        for name, opt in models.items():
+            res[name] = dict(grad=_flat([p.grad for p in opt.params]), nu=_flat(opt.moments()[1]))
+            res[f"{name}_digest"] = _digest(opt.params)
+        if kind != "unet":
+            res["disc_stats"] = torch.cat([b.float().flatten().cpu()
+                                           for b in tr.state.disc.buffers()])
+            if hasattr(tr.state.vae, "codebook"):
+                res["codebook"] = torch.cat([b.float().flatten().cpu()
+                                             for b in tr.state.vae.codebook.buffers()])
+        if kind == "unet" and tr.shard is not None and not tr.fsdp:
+            # the gloo all-reduce of the step's gradients alone, timed
+            grads = [local(p.grad).clone() for p in tr.state.optimizer.params]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                all_reduce_mean_(grads, tr.shard.group)
+            torch.cuda.synchronize()
+            res["allreduce_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+            res["allreduce_mb"] = sum(g.numel() * g.element_size() for g in grads) / 2**20
+        del tr
+        torch.cuda.empty_cache()
+        return res
+
+    unet_cfg = DiffusionConfig.from_yaml(CONFIG, **dirs)
+    lpips = LPIPS.from_torch_file(os.path.join(work, "lpips.pth"))
+    cases = {"unet_dp": ("unet", unet_cfg, make_mesh(device_type="cuda"), {}),
+             "unet_fsdp": ("unet", unet_cfg, make_mesh(data=1, model=2, device_type="cuda"),
+                           {"param_sharding": "fsdp"})}
+    for name, path in (("kl", VAE_CONFIG), ("vq", VQ_CONFIG)):
+        cases[f"{name}_dp"] = ("vae", VAEConfig.from_yaml(path, **dirs),
+                               make_mesh(device_type="cuda"), {"percept_fn": lpips})
+    for name, (kind, cfg, mesh, kw) in cases.items():
+        try:
+            got = run(kind, cfg, mesh, **kw)
+        except Exception as e:  # reported, and failed by the parent
+            out[name] = {"error": f"{type(e).__name__}: {e}"}
+            continue
+        digests = [None] * world
+        dist.all_gather_object(digests, {k: v for k, v in got.items() if k.endswith("_digest")})
+        res = {k: v for k, v in got.items() if k in ("ms", "launches", "metrics", "allreduce_ms",
+                                                    "allreduce_mb")}
+        res["ranks_equal"] = all(d == digests[0] for d in digests)
+        if rank == 0:  # the one-process step from the same state and batch
+            ref = run(kind, cfg, None, **kw)
+            res["one_process_ms"] = ref["ms"]
+            res.update(_compare_step(torch, got, ref,
+                                     ("unet",) if kind == "unet" else ("vae", "disc")))
+        out[name] = res
+        dist.barrier()
+    return out
+
+
+def _rank_worker(case: str, work: str) -> int:
+    """One rank of phase 14's launches (`--rank-worker case work`): writes
+    its results to `work/{case}-rank{RANK}.json`."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from image_diffusion_torch.ops import attention as attn
+    from image_diffusion_torch.parallel.mesh import initialize_distributed
+
+    if case == "nccl-shared":  # two NCCL ranks on one card must be refused
+        try:
+            initialize_distributed("cuda:0")
+        except RuntimeError as e:
+            print(f"REFUSED rank {os.environ['RANK']}: {e}", flush=True)
+            return 3
+        return 0
+    out = {"nccl1": _worker_nccl1, "gloo2": _worker_gloo2}[case](torch, np, attn, work)
+    with open(os.path.join(work, f"{case}-rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(out, f)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_parallel(torch, np, attn, tmp, vae_state, unet_state, grid):
+    """Phase 14: the multi-device layer on the one card (see the module
+    doc).  `grid`: phase 5's ddpm-1000 images on the host and its dpm-20
+    seconds, device busy and wall ms."""
+    work = os.path.join(tmp, "phase14")
+    os.makedirs(work)
+    _random_lpips_file(torch, os.path.join(work, "lpips.pth"))
+    a = _phase14_nccl(work)
+    b, rank1 = _phase14_gloo(work)
+    c = _phase14_sharding(torch, attn, work, vae_state, unet_state, grid)
+    return dict(nccl1=a, gloo2=b, gloo2_rank1_launches=rank1, **c)
+
+
+def _phase14_nccl(work: str) -> dict:
+    """Phase 14 (a) and the refusal of two NCCL ranks on one card."""
+    # (a) world 1 over NCCL
+    t0 = time.perf_counter()
+    rc, text = _torchrun(1, "nccl1", work, timeout=300)
+    if rc != 0:
+        raise AssertionError(f"phase 14 (a): the NCCL launch failed ({rc}):\n{text[-4000:]}")
+    with open(os.path.join(work, "nccl1-rank0.json")) as f:
+        a = json.load(f)
+    log(f"phase 14 (a) world 1 over {a['backend']} under torchrun: the DP step of the shipped "
+        f"UNet at batch {B_TRAIN} (loss {a['loss']:.5f}, grad norm {a['grad']:.4f}) against the "
+        f"plain step from a deep copy of one state: bit-equal {a['bit_equal']} (loss, grad norm, "
+        f"parameters, Adam's moments); packed launches forward/backward plain {a['step_launches']['plain']}, "
+        f"DP {a['step_launches']['dp']}; train_diffusion --data-parallel 1: {a['cli_steps']} steps in "
+        f"{a['cli_s']:.1f} s, launches {a['cli_launches']}, checkpoint {a['cli_ckpt']} "
+        f"({time.perf_counter() - t0:.1f} s with the launch)")
+    if not (a["backend"] == "nccl" and a["bit_equal"] and a["step_launches"]["dp"] == [14, 14]
+            and a["cli_steps"] == 5 and a["cli_launches"] == [70, 70] and a["cli_ckpt"]):
+        raise AssertionError("phase 14 (a): the world-1 NCCL step or train_diffusion is wrong")
+
+    # two NCCL ranks on the one card: refused, naming the ranks
+    rc, text = _torchrun(2, "nccl-shared", work, timeout=120)
+    # the two ranks print to one stream, their lines may run together
+    refused = re.findall(r"REFUSED rank (\d): (ranks \d and \d would share one card)", text)
+    log(f"phase 14 two NCCL ranks on one card: exit {rc}; refused on ranks "
+        f"{sorted(r for r, _ in refused)}: {refused[0][1] if refused else None}")
+    if rc == 0 or sorted(r for r, _ in refused) != ["0", "1"]:
+        raise AssertionError(f"phase 14: two NCCL ranks on one card were not refused:\n{text[-3000:]}")
+    return a
+
+
+def _phase14_gloo(work: str) -> tuple[dict, dict]:
+    """Phase 14 (b) -> (rank 0's results, rank 1's launches)."""
+    # (b) two ranks sharing the card over gloo
+    t0 = time.perf_counter()
+    rc, text = _torchrun(2, "gloo2", work, timeout=600)
+    if rc != 0:
+        raise AssertionError(f"phase 14 (b): the gloo launch failed ({rc}):\n{text[-4000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"gloo2-rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    b = ranks[0]
+    failed = []
+    for name in ("unet_dp", "unet_fsdp", "kl_dp", "vq_dp"):
+        res = b[name]
+        if "error" in res:
+            log(f"phase 14 (b) {name}: FAILED under gloo on CUDA tensors: {res['error']}")
+            failed.append(name)
+            continue
+        models = ("unet",) if name.startswith("unet") else ("vae", "disc")
+        want = [14, 14, 0] if name.startswith("unet") else [0, 0, 2]
+        launches = [ranks[r][name]["launches"] for r in range(2)]
+        errs = "; ".join(f"{m} clipped gradient rel L2 {res[f'{m}_grad_rel_l2']:.3e}, Adam's "
+                         f"second moment rel L2 {res[f'{m}_nu_rel_l2']:.3e}" for m in models)
+        norms = ", ".join(f"{k} {v:.3e}" for k, v in res["norm_rel"].items())
+        extra = "".join(f"; {k} max|diff|/max {res[f'{k}_rel_max']:.3e}"
+                        for k in ("disc_stats", "codebook") if f"{k}_rel_max" in res)
+        if "allreduce_ms" in res:
+            extra += (f"; the gloo all-reduce of the step's {res['allreduce_mb']:.0f} MiB of "
+                      f"gradients between two processes on one card {res['allreduce_ms']:.1f} ms "
+                      "(the cost of gloo through the host, not a scaling figure)")
+        log(f"phase 14 (b) {name}: 2 ranks x {B_RANK} rows over gloo on cuda:0 against the "
+            f"one-process step of {B_TRAIN}: losses rel {max(res['loss_rel'].values()):.3e}, "
+            f"gradient norms before the clip rel {norms} (tolerance {DP_LOSS_REL}); {errs} "
+            f"(tolerances {GRAD_REL_L2} and {DP_NU_REL_L2}){extra}; ranks "
+            f"bit-equal {res['ranks_equal']}; launches per rank (packed fwd, bwd, flash) "
+            f"{launches}; the first step of a fresh trainer {res['ms']:.1f} ms on rank 0, "
+            f"one-process {res['one_process_ms']:.1f} ms")
+        held = (res["ranks_equal"] and launches == [want, want]
+                and max(res["loss_rel"].values()) <= DP_LOSS_REL
+                and len(res["norm_rel"]) == len(models)
+                and max(res["norm_rel"].values()) <= DP_LOSS_REL
+                and all(res[f"{m}_grad_rel_l2"] <= GRAD_REL_L2
+                        and res[f"{m}_nu_rel_l2"] <= DP_NU_REL_L2 for m in models)
+                and res.get("disc_stats_rel_max", 0.0) <= DP_STATS_REL
+                and res.get("codebook_rel_max", 0.0) <= DP_STATS_REL)
+        if not held:
+            failed.append(name)
+    log(f"phase 14 (b) in {time.perf_counter() - t0:.1f} s with the launch")
+    if failed:
+        raise AssertionError(f"phase 14 (b): {failed} outside their bars or failed")
+    return ({k: v for k, v in b.items() if isinstance(v, dict)},
+            {k: v["launches"] for k, v in ranks[1].items() if isinstance(v, dict) and "launches" in v})
+
+
+def _phase14_sharding(torch, attn, work, vae_state, unet_state, grid) -> dict:
+    """Phase 14 (c): sampling sharded in one process over a repeated card."""
+    from image_diffusion_torch.core.config import ScheduleConfig, UNetArch, VAEArch
+    from image_diffusion_torch.pipelines import DiffusionPipeline
+    from image_diffusion_torch.scripts import sample_grid
+
+    # (c) sharding in one process over a repeated card
+    pipe = DiffusionPipeline(VAEArch(), vae_state, UNetArch(), unet_state, ScheduleConfig(),
+                             "a,b,c")
+    scales, devices = list(range(1, 10)), ["cuda:0", "cuda:0"]
+    runs = {}
+    for sampler, n_steps, ref in (("dpm", 20, None), ("ddpm", 1000, grid["ddpm"])):
+        kw = dict(seed=0, sampler=sampler, num_inference_steps=n_steps if sampler == "dpm" else None)
+        if ref is None:
+            ref = pipe.sample(scales, **kw).cpu()
+        attn.packed_attention.launches = attn.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs = pipe.sample(scales, devices=devices, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs[sampler] = dict(seconds=secs, rel_l2=rel_l2(imgs, ref),
+                             launches=[attn.packed_attention.launches, attn.flash_attention.launches],
+                             finite=bool(torch.isfinite(imgs).all()), shape=list(imgs.shape))
+    # each shard against sample_batch of its own 14 rows, unsharded: bit-equal
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x_init = torch.randn((27, *pipe.latent_shape), generator=gen, device="cuda")
+    labels = torch.arange(3).repeat(9)
+    row_scales = torch.tensor(scales, dtype=torch.float32).repeat_interleave(3)
+    sharded = pipe.sample(scales, seed=0, sampler="dpm", num_inference_steps=20, devices=devices)
+    shard_equal = []
+    for rows in (list(range(14)), list(range(14, 27)) + [0]):
+        own = pipe.sample_batch(labels[rows], row_scales[rows], x_init[rows], sampler="dpm",
+                                num_inference_steps=20)
+        n = min(len(rows), 27 - rows[0])
+        shard_equal.append(bool(torch.equal(own[:n], sharded[rows[0]:rows[0] + n])))
+    runs["dpm"]["shards_equal_own_rows"] = shard_equal
+    log(f"phase 14 (c) dpm-20 over {devices}: each shard's rows against sample_batch of those "
+        f"14 rows unsharded, bit-equal {shard_equal}")
+    if not all(shard_equal):
+        raise AssertionError("phase 14 (c): a shard's rows differ from sampling those rows alone")
+    busy_prof, _, wall = device_profile(torch, lambda: pipe.sample(
+        scales, seed=0, sampler="dpm", num_inference_steps=20, devices=devices), iters=1)
+    busy = sum(busy_prof.values())
+    runs["dpm"].update(busy_ms=busy, wall_ms=wall)
+    for sampler, r in runs.items():
+        n = 20 if sampler == "dpm" else 1000
+        log(f"phase 14 (c) {sampler}-{n} grid over {devices} in one process: {r['shape']} "
+            f"(28 padded rows, 14 a shard) in {r['seconds']:.2f} s against phase 5's "
+            f"{grid[sampler + '_s']:.2f} s unsharded; rel L2 to the unsharded grid "
+            f"{r['rel_l2']:.3e} (tolerance {SHARD_GRID_REL}); {r['launches'][0]} packed "
+            f"launches ({r['launches'][0] / (2 * n):.0f} a step per shard), "
+            f"{r['launches'][1]} flash (one decode a shard)")
+        if not (r["finite"] and r["rel_l2"] <= SHARD_GRID_REL
+                and r["launches"] == [2 * 14 * n, 2]):
+            raise AssertionError(f"phase 14 (c): the sharded {sampler} grid is wrong")
+    log(f"phase 14 (c) dpm-20 sharded profile: device busy {busy:.3f} ms of a {wall:.3f} ms grid "
+        f"(idle share {idle_share(busy, wall)}; phase 5 unsharded: {grid['dpm_busy']:.3f} of "
+        f"{grid['dpm_wall']:.3f} ms, idle share {idle_share(grid['dpm_busy'], grid['dpm_wall'])})")
+    bundle = os.path.join(work, "bundle.ckpt")
+    pipe.to_checkpoint(bundle)
+    ref = pipe.sample(scales, seed=0, sampler="dpm", num_inference_steps=20).cpu()
+    del pipe
+    attn.packed_attention.launches = 0
+    args = sample_grid.parse_args([bundle, "--sampler", "dpm", "--seed", "0",
+                                   "--data-parallel", "1"])
+    _, _, imgs, secs = sample_grid.sample(args)
+    cli_launches = attn.packed_attention.launches
+    cli_err = rel_l2(imgs, ref)
+    log(f"phase 14 (c) sample_grid --data-parallel 1 --sampler dpm: {tuple(imgs.shape)} in "
+        f"{secs:.2f} s, {cli_launches} packed launches; against pipe.sample unsharded rel L2 "
+        f"{cli_err:.3e}, bit-equal {bool(torch.equal(imgs, ref))}")
+    if not (cli_err <= SHARD_GRID_REL and cli_launches == 14 * 20):
+        raise AssertionError("phase 14 (c): sample_grid --data-parallel 1 disagrees")
+    return dict(sharded=runs, sample_grid_dp1=dict(seconds=secs, rel_l2=cli_err,
+                                                  launches=cli_launches))
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--rank-worker"]:  # one rank of phase 14's launches
+        return _rank_worker(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2110,7 +2601,9 @@ def main() -> int:
     # phase 3: kernels against their plain versions
     sites = phase_kernels(torch, F, attn, clock_hz, B_GRID)
     serve_sites = phase_kernels(torch, F, attn, clock_hz, 2 * SERVE_BATCH)
-    bwd_sites = phase_bwd_kernels(torch, F, attn, clock_hz)
+    shard_sites = phase_kernels(torch, F, attn, clock_hz, B_SHARD)
+    bwd_sites = phase_bwd_kernels(torch, F, attn, clock_hz, B_TRAIN)
+    rank_bwd_sites = phase_bwd_kernels(torch, F, attn, clock_hz, B_RANK)
     flash_batches = phase_flash_kernel(torch, F, attn, clock_hz)
 
     # phase 4: full-width UNet forward on the card, two rows against the CPU
@@ -2201,6 +2694,7 @@ def main() -> int:
     dpm_prof, dpm_kernels, dpm_wall = device_profile(torch, lambda: pipe.sample(
         scales, seed=0, sampler="dpm", num_inference_steps=20, output="uint8"), iters=1)
     dpm_busy = sum(dpm_prof.values())
+    grid = dict(ddpm=imgs.cpu(), ddpm_s=ddpm_s, dpm_s=dpm_s, dpm_busy=dpm_busy, dpm_wall=dpm_wall)
     log(f"phase 5 dpm-20 profile: device busy {dpm_busy:.3f} ms of a {dpm_wall:.3f} ms grid "
         f"(idle share {idle_share(dpm_busy, dpm_wall)}); {dpm_kernels:.0f} kernels")
 
@@ -2254,6 +2748,10 @@ def main() -> int:
 
         # phase 13: CLIP zero-shot labels
         clip = phase_clip(torch, np, attn, tmp, vae_train)
+        torch.cuda.empty_cache()
+
+        # phase 14: data parallelism, FSDP and sharded sampling on the one card
+        par = phase_parallel(torch, np, attn, tmp, vae_state, unet_state, grid)
 
     per_forward = {k: 2 * sum(s[k] for s in sites)
                    for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
@@ -2281,17 +2779,31 @@ def main() -> int:
                              "phase 10 preview dpm-20": rp["preview_launches"][0],
                              "phase 11 eval_fid ddim-50": fid["eval_fid_launches"][0],
                              "phase 12 served dpm-20 batch": served["launches"][0],
-                             "phase 12 served ddim-50 batch, eta 1": served["ddim_launches"][0]},
-        "max_abs_err": max(s["max_abs_err"] for s in sites + serve_sites),
+                             "phase 12 served ddim-50 batch, eta 1": served["ddim_launches"][0],
+                             "phase 14 world-1 NCCL step": par["nccl1"]["step_launches"]["dp"][0],
+                             "phase 14 train_diffusion under torchrun, world 1":
+                                 par["nccl1"]["cli_launches"][0],
+                             **{f"phase 14 {k} step, per rank": v["launches"][0]
+                                for k, v in par["gloo2"].items() if k.startswith("unet")},
+                             "phase 14 ddpm-1000 grid over 2 shards":
+                                 par["sharded"]["ddpm"]["launches"][0],
+                             "phase 14 dpm-20 grid over 2 shards":
+                                 par["sharded"]["dpm"]["launches"][0],
+                             "phase 14 sample_grid --data-parallel 1 dpm":
+                                 par["sample_grid_dp1"]["launches"]},
+        "max_abs_err": max(s["max_abs_err"] for s in sites + serve_sites + shard_sites),
         **per_forward,
         "bound_by": "operations" if bound_ops > per_forward["bound_ms"] / 2 else "bytes",
         "per": "one UNet forward at batch 54: 14 sites, two of each shape in sites; "
-               "serve_per_forward: one served UNet call at 16 rows (serve_sites)",
+               "serve_per_forward: one served UNet call at 16 rows (serve_sites); "
+               "shard_per_forward: one UNet call of a phase 14 grid shard at 28 rows (shard_sites)",
         "sites": sites,
         "serve_sites": serve_sites,
-        "serve_per_forward": {k: 2 * sum(s[k] for s in serve_sites)
-                              for k in ("ms", "device_ms", "plain_ms", "library_ms",
-                                        "library_device_ms", "bound_ms", "exp_ms")},
+        "shard_sites": shard_sites,
+        **{f"{name}_per_forward": {k: 2 * sum(s[k] for s in rows)
+                                   for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                             "library_device_ms", "bound_ms", "exp_ms")}
+           for name, rows in (("serve", serve_sites), ("shard", shard_sites))},
     }, {
         "name": "packed_attention_bwd",
         "route": "cuda",
@@ -2302,14 +2814,25 @@ def main() -> int:
                              "phase 8 train_diffusion": clis["train_launches"][1],
                              **{f"phase 10 remat {k} step": r["launches"][1]
                                 for k, r in rp["remat"].items()},
-                             "phase 10 train_diffusion --remat dots": rp["cli_launches"][1]},
-        "max_abs_err": max(s["max_abs_err"] for s in bwd_sites),
+                             "phase 10 train_diffusion --remat dots": rp["cli_launches"][1],
+                             "phase 14 world-1 NCCL step": par["nccl1"]["step_launches"]["dp"][1],
+                             "phase 14 train_diffusion under torchrun, world 1":
+                                 par["nccl1"]["cli_launches"][1],
+                             **{f"phase 14 {k} step, per rank": v["launches"][1]
+                                for k, v in par["gloo2"].items() if k.startswith("unet")}},
+        "max_abs_err": max(s["max_abs_err"] for s in bwd_sites + rank_bwd_sites),
         **per_backward,
         "bound_by": "operations" if bwd_bound_ops > per_backward["bound_ms"] / 2 else "bytes",
         "per": "one UNet backward at batch 48: 14 sites, two of each shape in sites; ms with "
                "the forward's saved output and row sums, as the operator's gradient calls it; alone_ms "
-               "when the wrapper launches the forward first",
+               "when the wrapper launches the forward first; rank_per_backward: one UNet backward "
+               "of a phase 14 rank at 24 rows (rank_sites)",
         "sites": bwd_sites,
+        "rank_sites": rank_bwd_sites,
+        "rank_per_backward": {k: 2 * sum(s[k] for s in rank_bwd_sites)
+                              for k in ("ms", "device_ms", "dq_device_ms", "dkdv_device_ms",
+                                        "alone_ms", "plain_ms", "library_ms", "library_device_ms",
+                                        "bound_ms", "exp_ms")},
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -2331,7 +2854,13 @@ def main() -> int:
                              "phase 11 train_vae --fid-weights": fid["vae_flash"],
                              "phase 11 eval_fid ddim-50": fid["eval_fid_launches"][1],
                              "phase 12 served dpm-20 batch": served["launches"][1],
-                             "phase 12 served ddim-50 batch, eta 1": served["ddim_launches"][1]},
+                             "phase 12 served ddim-50 batch, eta 1": served["ddim_launches"][1],
+                             **{f"phase 14 {k} stage-1 step, per rank": v["launches"][2]
+                                for k, v in par["gloo2"].items() if not k.startswith("unet")},
+                             "phase 14 ddpm-1000 grid over 2 shards":
+                                 par["sharded"]["ddpm"]["launches"][1],
+                             "phase 14 dpm-20 grid over 2 shards":
+                                 par["sharded"]["dpm"]["launches"][1]},
         "max_abs_err": max(b["max_abs_err"] for b in flash_batches),
         **{k: next(b for b in flash_batches if b["B"] == B_TRAIN)[k]
            for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
@@ -2367,7 +2896,8 @@ def main() -> int:
         "remat": rp["remat"], "remat_grad_floor": rp["remat_grad_floor"],
         "remat_cli_step_ms": rp["cli_step_ms"], "preview_s": rp["preview_s"],
         "debug_nans": rp["debug_nans"], **{k: v for k, v in fid.items() if "launches" not in k},
-        "serve": {k: v for k, v in served.items() if "launches" not in k}, **clip}
+        "serve": {k: v for k, v in served.items() if "launches" not in k}, **clip,
+        "parallel": par}
     log(json.dumps(record))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

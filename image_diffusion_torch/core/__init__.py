@@ -20,6 +20,12 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+def is_main_process() -> bool:
+    """True outside a process group and on its rank 0: the one process that
+    writes checkpoints, metrics and figures."""
+    return not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0
+
+
 @contextlib.contextmanager
 def no_tf32():
     """cuBLAS matmuls and cuDNN convolutions in full fp32 (no TF32) for the

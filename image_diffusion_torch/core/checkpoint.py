@@ -13,6 +13,10 @@ covers the subset flax emits for parameter and trainer-state trees: maps,
 arrays, str, bin, ints, floats, nil, bool and ext type 1, with float32,
 int32, int64 (a trainer's step), uint8 and float16 arrays.  Anything else
 raises.
+
+Under a process group only rank 0 writes; the trainers gather sharded
+state on every rank before they call the writers, and the writers run no
+collective, so a write on rank 0's thread never waits for another rank.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import threading
 from typing import Any
 
 import numpy as np
+
+from . import is_main_process
 
 MAGIC = b"IDTPU1\x00\x00"
 
@@ -221,7 +227,10 @@ def unpackb(data: bytes):
 
 def save_checkpoint(path: str, architecture: dict | None = None, epoch: int | None = None,
                     **trees) -> None:
-    """Save named trees of numpy arrays plus metadata, atomically."""
+    """Save named trees of numpy arrays plus metadata, atomically (on rank
+    0 alone under a process group)."""
+    if not is_main_process():
+        return
     payload = {name: tree for name, tree in trees.items() if tree is not None}
     meta = json.dumps({"architecture": architecture, "epoch": epoch, "trees": sorted(payload)})
     blob = packb(payload)
@@ -241,7 +250,8 @@ class AsyncSaver:
     """Checkpoint writes off the caller's thread: the caller hands over
     trees already copied to the host, serialization and file IO run on a
     background thread, and at most one write is in flight (a new save, or
-    `wait`, joins the previous one first)."""
+    `wait`, joins the previous one first).  Off rank 0 of a process
+    group it writes nothing."""
 
     def __init__(self):
         self._thread: threading.Thread | None = None
@@ -250,6 +260,8 @@ class AsyncSaver:
     def save(self, path: str, architecture: dict | None = None, epoch: int | None = None,
              **trees) -> None:
         self.wait()
+        if not is_main_process():
+            return
 
         def work():
             try:

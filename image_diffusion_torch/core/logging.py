@@ -5,6 +5,8 @@ installed (imported at first use); without it, or with `no_mlflow`, metrics
 go to `{logs_dir}/{run_name}_metrics.csv` as (step, name, value) rows and
 figures to `{logs_dir}/{run_name}/`.
 Metric names (unet/loss, unet/grad, unet/lr, ...) match the JAX package's.
+Under a process group only rank 0 writes metrics, parameters and figures;
+every rank logs to its console.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import csv
 import logging
 import os
 from datetime import datetime
+
+from . import is_main_process
 
 
 def get_run_name(prefix: str = "") -> str:
@@ -32,6 +36,9 @@ class BasicLogger:
         self.run_name = run_name
         self._mlflow = None
         self.csv_path = None
+        self.writes = is_main_process()
+        if not self.writes:
+            return
         os.makedirs(logs_dir, exist_ok=True)
         if not no_mlflow:
             try:
@@ -46,6 +53,8 @@ class BasicLogger:
             self.csv_path = os.path.join(logs_dir, f"{run_name}_metrics.csv")
 
     def log_metric(self, name: str, val: float, step: int) -> None:
+        if not self.writes:
+            return
         if self._mlflow is not None:
             self._mlflow.log_metric(name, val, step=step)
             return
@@ -66,9 +75,9 @@ class BasicLogger:
         import matplotlib.pyplot as plt
 
         try:
-            if self._mlflow is not None:
+            if self.writes and self._mlflow is not None:
                 self._mlflow.log_figure(figure, name)
-            else:
+            elif self.writes:
                 path = os.path.join(self.logs_dir, self.run_name, name)
                 os.makedirs(os.path.dirname(path), exist_ok=True)
                 figure.savefig(path)
@@ -76,6 +85,8 @@ class BasicLogger:
             plt.close(figure)
 
     def log_params(self, **kwargs) -> None:
+        if not self.writes:
+            return
         if self._mlflow is not None:
             self._mlflow.log_params(dict(kwargs))
         else:

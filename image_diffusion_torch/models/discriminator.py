@@ -12,7 +12,11 @@ BatchNorm follows flax's `nn.BatchNorm` (the JAX package's), not
 variance max(E[x^2] - E[x]^2, 0) normalize, and the running statistics move
 as r = 0.9 r + 0.1 stat with that biased variance (torch's own layer keeps
 the unbiased one).  Each train-mode call updates them in place, so calls
-thread them in the order they are made.
+thread them in the order they are made.  Under data parallelism (`group`
+set by the trainer) the batch mean and mean of squares are averaged over
+the data group, with their gradient: the statistics are the global
+batch's, as under the JAX package's global view, and the running
+statistics are equal on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core import resolve_device
+from ..parallel.mesh import all_reduce_mean
 from .layers import Conv2d
 
 MOMENTUM = 0.9  # retention of the running statistics
@@ -29,7 +34,8 @@ EPS = 1e-5
 
 
 class BatchNorm(nn.Module):
-    """fp32 batch normalization over (N, H, W) with flax's statistics."""
+    """fp32 batch normalization over (N, H, W) with flax's statistics;
+    `group`: the process group the statistics are averaged over, or None."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -37,12 +43,16 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if self.training:
             mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean_sq = (x * x).mean(dim=(0, 2, 3))
+            if self.group is not None:
+                mean, mean_sq = all_reduce_mean(torch.stack([mean, mean_sq]), self.group)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(MOMENTUM).add_((1.0 - MOMENTUM) * mean)
                 self.running_var.mul_(MOMENTUM).add_((1.0 - MOMENTUM) * var)

@@ -12,8 +12,9 @@
 The feature function is pluggable: InceptionV3's pool3 (2048-d,
 `models/inception.py`) is the canonical one; any callable taking (N, H, W,
 3) images in [0, 1] to (N, D) features works (the tests use a random
-projection).  No gather across processes yet: one device computes all
-features.
+projection).  Under data parallelism each rank adds its own images'
+features, and `all_reduce` sums the statistics over the group before
+`compute`.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 class RunningStats:
@@ -41,6 +43,16 @@ class RunningStats:
         self.n += f.shape[0]
         self.sum += f.sum(0)
         self.outer += f.T @ f
+
+    def all_reduce(self, group: dist.ProcessGroup, device: torch.device) -> None:
+        """Sum the statistics over `group` (float64, through `device`)."""
+        packed = torch.from_numpy(np.concatenate([[self.n], self.sum, self.outer.ravel()]))
+        packed = packed.to(device)
+        dist.all_reduce(packed, group=group)
+        packed = packed.cpu().numpy()
+        self.n = int(round(packed[0]))
+        self.sum = packed[1:1 + self.dim].copy()
+        self.outer = packed[1 + self.dim:].reshape(self.dim, self.dim).copy()
 
     def finalize(self) -> tuple[np.ndarray, np.ndarray]:
         if self.n < 2:
@@ -105,6 +117,14 @@ class FID:
 
     def reset_fake(self) -> None:
         self.fake.reset()
+
+    def all_reduce(self, group: dist.ProcessGroup, device: torch.device) -> None:
+        """Sum the fake statistics, and the real ones until they are
+        latched, over `group`: each rank added its own images.  Every rank
+        calls it before `compute`."""
+        self.fake.all_reduce(group, device)
+        if not self._real_done:
+            self.real.all_reduce(group, device)
 
     def compute(self) -> float:
         mu_f, cov_f = self.fake.finalize()

@@ -15,12 +15,16 @@ The VQ codebook holds its embeddings and EMA statistics as fp32 buffers
 (state, not parameters), finds nearest codes in fp32, reports the
 commitment loss and the code perplexity, and in training updates itself
 by the EMA of the batches' code statistics, or hands those statistics to
-the caller for grad accumulation.
+the caller for grad accumulation.  Under data parallelism (`group` set by
+the trainer) the statistics and the perplexity's histogram are summed over
+the data group, so every rank applies the global batch's update, as under
+the JAX package's global view.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..core.config import VAEArch
@@ -112,11 +116,13 @@ class Codebook(nn.Module):
     The embeddings and the EMA sums are buffers, not parameters: no
     optimizer sees them (the JAX package's non-trainable `codebook`
     collection).  They stay fp32 whatever the compute dtype, and the
-    embeddings keep the state-dict key `embeddings.weight`."""
+    embeddings keep the state-dict key `embeddings.weight`.  `group`: the
+    process group its statistics are summed over, or None."""
 
     def __init__(self, size: int, dim: int, gamma: float | None):
         super().__init__()
         self.gamma = gamma
+        self.group = None
         self.embeddings = nn.Module()
         self.embeddings.register_buffer("weight", torch.zeros(size, dim))
         self.register_buffer("ema_cluster_size", torch.zeros(size))
@@ -176,20 +182,30 @@ class Codebook(nn.Module):
             idx = nearest_code(flat, emb)
         quant = emb[idx]
         counts = torch.bincount(idx, minlength=emb.shape[0]).float()
+        n_tokens = idx.numel()
+        if self.group is not None:  # the global batch's histogram
+            dist.all_reduce(counts, group=self.group)
+            n_tokens *= dist.get_world_size(self.group)
         if train:
             with torch.no_grad():
                 dw = torch.zeros_like(emb).index_add_(0, idx, flat)
+                if self.group is not None:
+                    dist.all_reduce(dw, group=self.group)
                 if ema_stats is None:
                     self.ema_update(counts, dw)
                 else:
                     ema_stats[0].add_(counts)
                     ema_stats[1].add_(dw)
         if valid_mask is None:
-            probs = counts / idx.numel()
+            probs = counts / n_tokens
         else:
             tok = valid_mask.float().repeat_interleave(idx.numel() // valid_mask.numel())
-            probs = (torch.bincount(idx, weights=tok, minlength=emb.shape[0])
-                     / torch.clamp(tok.sum(), min=1.0))
+            hist, n_valid = torch.bincount(idx, weights=tok, minlength=emb.shape[0]), tok.sum()
+            if self.group is not None:
+                both = torch.cat([hist, n_valid[None]])
+                dist.all_reduce(both, group=self.group)
+                hist, n_valid = both[:-1], both[-1]
+            probs = hist / torch.clamp(n_valid, min=1.0)
         perplexity = torch.exp(-torch.sum(probs * torch.log(probs + 1e-6)))
         commitment = torch.mean((quant - flat) ** 2)
         return (flat + (quant - flat).detach()).reshape(z.shape), commitment, perplexity

@@ -16,11 +16,21 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 
 from .build import load_library
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`; sharded sampling launches from one
+    thread a device, and `+=` is not atomic across threads."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 LOG2E = 1.4426950408889634
 HEAD_DIMS = (16, 32, 48, 64)
@@ -210,7 +220,7 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads
                  B, N, C, num_heads, qscale, stream)
     if err != 0:
         raise RuntimeError(f"packed_attention kernel launch failed: cudaError {err}")
-    packed_attention.launches += 1
+    _count_launch(packed_attention)
     return out, row_sum
 
 
@@ -271,7 +281,7 @@ def packed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  delta.data_ptr(), B, N, C, num_heads, scale * LOG2E, scale, stream)
     if err != 0:
         raise RuntimeError(f"packed_attention_bwd kernel launch failed: cudaError {err}")
-    packed_attention_bwd.launches += 1
+    _count_launch(packed_attention_bwd)
     return dq, dk, dv
 
 
@@ -406,7 +416,7 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  B * H, N, D, scale * LOG2E, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
-    flash_attention.launches += 1
+    _count_launch(flash_attention)
     return out
 
 

@@ -17,6 +17,11 @@ since torch cannot reproduce the JAX package's random streams.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import copy
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Mapping, Sequence
 
 import torch
@@ -28,6 +33,7 @@ from ..core.config import ScheduleConfig, UNetArch, VAEArch, _build
 from ..core.progress import progress as progress_bar
 from ..models import build_unet, build_vae
 from ..ops import schedule as S
+from ..parallel.mesh import global_row_draw, pad_to_multiple
 
 
 def to_uint8(imgs: torch.Tensor) -> torch.Tensor:
@@ -39,6 +45,22 @@ def to_uint8(imgs: torch.Tensor) -> torch.Tensor:
 
 def _host_fp32(state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", torch.float32) for k, v in state.items()}
+
+
+def _indexed(device: str | torch.device) -> torch.device:
+    """`device` with the current card's index when a CUDA one has none."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _generator_copy(g: torch.Generator, device: torch.device) -> torch.Generator:
+    """A generator on `device` in `g`'s state (a CUDA generator's state
+    moves between cards)."""
+    out = torch.Generator(device=device)
+    out.set_state(g.get_state())
+    return out
 
 
 class DiffusionPipeline:
@@ -67,6 +89,8 @@ class DiffusionPipeline:
                                      schedule_cfg.beta_end, schedule_cfg.noise_type,
                                      device=self.device)
         self.classes = classes.split(",") if isinstance(classes, str) else list(classes)
+        self._replicas: dict[torch.device, tuple] = {}
+        self._replica_lock = threading.Lock()
 
     @property
     def latent_shape(self) -> tuple[int, int, int]:
@@ -74,13 +98,28 @@ class DiffusionPipeline:
         r = self.vae_arch.latent_resolution
         return (r, r, self.unet_arch.z_dim)
 
+    def _models(self, device: torch.device) -> tuple:
+        """(unet, vae, schedule) on `device`: the pipeline's own on its
+        device, else a replica of them made at first use and kept."""
+        if _indexed(device) == _indexed(self.device):
+            return self.unet, self.vae, self.sched
+        with self._replica_lock:
+            if device not in self._replicas:
+                sc = self.schedule_cfg
+                self._replicas[device] = (
+                    copy.deepcopy(self.unet).to(device), copy.deepcopy(self.vae).to(device),
+                    S.make_schedule(sc.num_steps, sc.beta_start, sc.beta_end, sc.noise_type,
+                                    device=device))
+            return self._replicas[device]
+
     @torch.inference_mode()
     def sample_batch(self, labels, cfg_scales, x_init, sampler: str = "dpm",
                      num_inference_steps: int | None = None, eta: float = 0.0,
                      generator: torch.Generator | None = None,
                      noise: torch.Tensor | None = None,
                      row_generators: Sequence[torch.Generator] | None = None,
-                     output: str = "float32", progress: bool = False) -> torch.Tensor:
+                     output: str = "float32", progress: bool = False,
+                     devices: Sequence[str | torch.device] | None = None) -> torch.Tensor:
         """Sample one explicit batch: per-row class labels, guidance scales
         and initial latents (B, h, w, z) -> (B, H, W, 3) images in [-1, 1]
         (`output="float32"`) or as uint8 pixels (`output="uint8"`).
@@ -96,25 +135,90 @@ class DiffusionPipeline:
         first), so a row's noise at step s depends on its generator's seed
         and s only, never on its batch or slot; or else, one batch-shaped
         draw a step, from `generator`.  `progress` shows a per-step bar
-        (`core.progress`)."""
+        (`core.progress`).
+
+        `devices` (a list of local devices, repeats allowed; default the
+        pipeline's device alone) shards the batch: padded with wrap-around
+        rows to a multiple of their number, each shard samples its block of
+        rows with its device's models (the pipeline's own on its device,
+        elsewhere replicas copied at first use), one thread a distinct
+        device running its shards in turn, and
+        the unpadded batch comes back in order on the pipeline's device,
+        equal to the unsharded result up to fp reassociation.  A row's
+        initial latent, label, scale, noise rows and generator go with it
+        (a pad row gets a copy of its generator's state); `generator`'s
+        draws are made at the unpadded batch's shape on every shard, which
+        keeps its rows (`parallel.mesh.global_row_draw`)."""
         if output not in ("float32", "uint8"):
             raise ValueError(f"unknown output {output!r}; expected 'float32' or 'uint8'")
-        dev = self.device
-        x = torch.as_tensor(x_init, dtype=torch.float32).to(dev)
-        labels = torch.as_tensor(labels).to(dev, torch.int64)
+        x = torch.as_tensor(x_init, dtype=torch.float32)
         B = x.shape[0]
-        scales = torch.as_tensor(cfg_scales, dtype=torch.float32).to(dev).reshape(B, 1, 1, 1)
+        labels = torch.as_tensor(labels).to(torch.int64)
+        scales = torch.as_tensor(cfg_scales, dtype=torch.float32).reshape(B)
         if noise is not None:
-            noise = torch.as_tensor(noise, dtype=torch.float32).to(dev)
+            noise = torch.as_tensor(noise, dtype=torch.float32)
         if row_generators is not None and len(row_generators) != B:
             raise ValueError(f"{len(row_generators)} row generators for a batch of {B}")
+        run = dict(sampler=sampler, n_steps=num_inference_steps, eta=eta, output=output)
+        devices = [_indexed(d) for d in (devices or [self.device])]
+        n = len(devices)
+        share = pad_to_multiple(B, n) // n
+        order = torch.arange(share * n) % B  # the padded batch: rows wrap around
 
+        def own(g: torch.Generator, dev: torch.device, pad: bool) -> torch.Generator:
+            # a row's own generator where it can draw (so it advances as
+            # unsharded), else a copy of its state
+            return g if not pad and _indexed(g.device) == dev else _generator_copy(g, dev)
+
+        shards = []
+        for k, dev in enumerate(devices):
+            rows = order[k * share:(k + 1) * share]
+            gens = None
+            if row_generators is not None:
+                gens = [own(row_generators[int(r)], dev, i >= B)
+                        for i, r in zip(range(k * share, (k + 1) * share), rows)]
+            draw = None
+            if generator is not None:
+                g = own(generator, dev, k > 0)
+
+                def draw(i, g=g, dev=dev, rows=rows if n > 1 else None):
+                    return global_row_draw(lambda: torch.randn(x.shape, generator=g, device=dev),
+                                           rows)
+            shards.append((dev, x[rows].to(dev), labels[rows].to(dev), scales[rows].to(dev),
+                           None if noise is None else noise[:, rows].to(dev), gens, draw))
+
+        def work(dev: torch.device) -> dict[int, torch.Tensor]:
+            # one thread a device runs that device's shards in turn
+            with torch.inference_mode(), (torch.cuda.device(dev) if dev.type == "cuda"
+                                          else contextlib.nullcontext()):
+                return {k: self._sample(*shards[k], progress=progress and k == 0, **run)
+                        for k in range(n) if devices[k] == dev}
+
+        distinct = list(dict.fromkeys(devices))
+        ctx = [contextvars.copy_context() for _ in distinct]  # the caller's site log
+        outs: dict[int, torch.Tensor] = {}
+        with ThreadPoolExecutor(max_workers=len(distinct)) as pool:
+            futures = [pool.submit(c.run, work, dev) for c, dev in zip(ctx, distinct)]
+            for f in futures:
+                outs.update(f.result())
+        return torch.cat([outs[k].to(self.device) for k in range(n)])[:B]
+
+    def _sample(self, dev: torch.device, x, labels, scales, noise, row_generators, draw,
+                sampler: str, n_steps: int | None, eta: float, output: str,
+                progress: bool) -> torch.Tensor:
+        """The sampler loop and the decode on `dev`'s models, the inputs
+        there: `noise` a step-noise block or None, `row_generators` one
+        generator a row or None, `draw(i)` step i's batch-shaped noise or
+        None (see `sample_batch`)."""
+        unet, vae, sched = self._models(dev)
+        B = x.shape[0]
+        scales = scales.reshape(B, 1, 1, 1)
         ctx = torch.cat([labels, torch.zeros_like(labels)])
         mask = torch.cat([torch.ones(B, 1), torch.zeros(B, 1)]).to(dev)
 
         def eps_fn(xt, t):
             t2 = torch.full((2 * B,), t, dtype=torch.int64, device=dev)
-            eps2 = self.unet(torch.cat([xt, xt]), t2, ctx, mask).float()
+            eps2 = unet(torch.cat([xt, xt]), t2, ctx, mask).float()
             eps_c, eps_u = eps2[:B], eps2[B:]
             return eps_u + scales * (eps_c - eps_u)
 
@@ -124,10 +228,10 @@ class DiffusionPipeline:
             if row_generators is not None:
                 return torch.stack([torch.randn(x.shape[1:], generator=g, device=dev)
                                     for g in row_generators])
-            if generator is None:
+            if draw is None:
                 raise ValueError(f"sampler {sampler!r} needs `noise`, `row_generators` or a "
                                  "`generator`")
-            return torch.randn(x.shape, generator=generator, device=dev)
+            return draw(i)
 
         def tvec(t):
             return torch.full((B,), t, dtype=torch.int64, device=dev)
@@ -136,38 +240,40 @@ class DiffusionPipeline:
             return progress_bar(it, total=len(it), desc="sampling") if progress else it
 
         if sampler == "ddpm":
-            for i, t in enumerate(steps(range(self.sched.num_steps - 1, -1, -1))):
-                x, _ = S.ddpm_step(self.sched, x, eps_fn(x, t), tvec(t), step_noise(i))
+            for i, t in enumerate(steps(range(sched.num_steps - 1, -1, -1))):
+                x, _ = S.ddpm_step(sched, x, eps_fn(x, t), tvec(t), step_noise(i))
         elif sampler in ("ddim", "dpm"):
-            n = num_inference_steps or (20 if sampler == "dpm" else 50)
-            ts = S.make_timesteps(self.sched.num_steps, n).tolist()
+            n = n_steps or (20 if sampler == "dpm" else 50)
+            ts = S.make_timesteps(sched.num_steps, n).tolist()
             pairs = list(zip(ts, ts[1:] + [-1]))
             if sampler == "ddim":
                 for i, (t, t_prev) in enumerate(steps(pairs)):
                     z = step_noise(i) if eta else torch.zeros_like(x)
-                    x, _ = S.ddim_step(self.sched, x, eps_fn(x, t), tvec(t), tvec(t_prev), z, eta)
+                    x, _ = S.ddim_step(sched, x, eps_fn(x, t), tvec(t), tvec(t_prev), z, eta)
             else:
                 x0_prev, h_prev = torch.zeros_like(x), -1.0
                 for t, t_prev in steps(pairs):
                     x, x0_prev, h_prev = S.dpmpp_2m_step(
-                        self.sched, x, eps_fn(x, t), tvec(t), tvec(t_prev), x0_prev, h_prev)
+                        sched, x, eps_fn(x, t), tvec(t), tvec(t_prev), x0_prev, h_prev)
         else:
             raise ValueError(f"unknown sampler {sampler!r}")
 
-        imgs = self.vae.decode(x, quantize=self.vae_arch.bottleneck == "vq")
+        imgs = vae.decode(x, quantize=self.vae_arch.bottleneck == "vq")
         return to_uint8(imgs) if output == "uint8" else imgs.float()
 
     def sample(self, cfg_scales: Sequence[float] | float, num_images: int = 10,
                seed: int | None = None, sampler: str = "ddpm",
                num_inference_steps: int | None = None, eta: float = 0.0,
-               output: str = "float32", progress: bool = False) -> torch.Tensor:
+               output: str = "float32", progress: bool = False,
+               devices: Sequence[str | torch.device] | None = None) -> torch.Tensor:
         """Sample a classes x scales grid -> (B, H, W, 3) images.
 
         A list of scales gives every class at every scale (B = classes x
         scales, scale-major rows); a scalar gives `num_images` per class at
         that scale.  Initial latents and step noise come from one generator
-        seeded with `seed` (0 when None) on the pipeline's device;
-        `progress` as in `sample_batch`."""
+        seeded with `seed` (0 when None) on the pipeline's device, drawn at
+        the grid's shape; `progress` and `devices` as in `sample_batch` (3
+        images on 8 devices pad to 8 rows)."""
         if not isinstance(cfg_scales, (list, tuple)):
             cfg_scales = [float(cfg_scales)] * num_images
         n_classes, n_scales = len(self.classes), len(cfg_scales)
@@ -178,7 +284,8 @@ class DiffusionPipeline:
                              device=self.device)
         return self.sample_batch(labels, scales, x_init, sampler=sampler,
                                  num_inference_steps=num_inference_steps, eta=eta,
-                                 generator=gen, output=output, progress=progress)
+                                 generator=gen, output=output, progress=progress,
+                                 devices=devices)
 
     # ------------------------------------------------------------------ io
 

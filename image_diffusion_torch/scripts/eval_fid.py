@@ -12,7 +12,9 @@ tail padded and counted by its valid rows; at most `--max-real` of them.
 Each sampling call is every class at `--cfg`, `--batch // classes` images
 each, seeds 0, 1, 2, ...; the last call keeps what is still missing.  The
 FID is the last line printed.  Runs on the CUDA card unless `--device cpu`
-is given.  Not ported yet: `--data-parallel` (multi-GPU sampling).
+is given; each sampling call is sharded over every card of a host with
+more than one, or over the first N with `--data-parallel N` (on the CPU, N
+shards), as `sample_grid` shards its grid.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ def parse_args(argv=None):
     p.add_argument("--eta", type=float, default=0.0)
     p.add_argument("--batch", type=int, default=64, help="Images per sampling call.")
     p.add_argument("--max-real", type=int, default=10000)
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="Shard each sampling call over N cards (default: all available).")
     add_device_argument(p)
     return p.parse_args(argv)
 
@@ -71,8 +75,10 @@ def evaluate(args) -> dict:
     the card)."""
     from ..models.fid import FID
     from ..models.inception import load_inception
+    from ..parallel.mesh import shard_devices
     from ..pipelines import DiffusionPipeline
 
+    devices = shard_devices(args.device, args.data_parallel)
     fid = FID(load_inception(args.fid_weights, args.device), dim=2048)
     pipeline = DiffusionPipeline.from_checkpoint(args.model, device=args.device)
     per_call = max(args.batch // len(pipeline.classes), 1)
@@ -85,7 +91,7 @@ def evaluate(args) -> dict:
     done, seed = 0, 0
     while done < args.num_images:
         imgs = pipeline.sample(args.cfg, num_images=per_call, seed=seed, sampler=args.sampler,
-                               num_inference_steps=args.steps, eta=args.eta)
+                               num_inference_steps=args.steps, eta=args.eta, devices=devices)
         take = min(len(imgs), args.num_images - done)
         fid.update_fake((imgs[:take] + 1.0) / 2.0)
         done += take

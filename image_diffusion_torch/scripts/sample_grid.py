@@ -7,8 +7,11 @@ scripts/sample_grid.py (the headline workload).
 Every class at every guidance scale in `--cfg`'s half-open range, through
 the 1000-step DDPM chain by default (27 images, one 54-row UNet call a
 step, for the shipped three classes).  Runs on the CUDA card unless
-`--device cpu` is given.  Not ported yet: `--data-parallel` (multi-GPU
-sampling).
+`--device cpu` is given.  On a host with more than one card the grid is
+sharded over all of them in this process, or over the first N with
+`--data-parallel N` (`DiffusionPipeline.sample(devices=)`: the grid padded
+to a multiple of N, one replica of the weights a card); `--device cpu
+--data-parallel N` makes N shards on the CPU.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ def parse_args(argv=None):
                         "20 for dpm; ddpm always runs the full schedule).")
     p.add_argument("--eta", type=float, default=0.0, help="DDIM stochasticity.")
     p.add_argument("--progress", action="store_true", help="Per-step progress bar.")
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="Shard the grid over N cards (default: all available).")
     add_device_argument(p)
     return p.parse_args(argv)
 
@@ -45,8 +50,10 @@ def sample(args):
     """Load the bundle and sample the grid -> (pipeline, scales, images
     (B, H, W, 3) fp32 in [-1, 1] on the host, seconds).  The seconds end
     with the images' copy to the host, which waits for the card."""
+    from ..parallel.mesh import shard_devices
     from ..pipelines import DiffusionPipeline
 
+    devices = shard_devices(args.device, args.data_parallel)
     pipeline = DiffusionPipeline.from_checkpoint(args.model, device=args.device)
     cfg_scales = list(range(args.cfg[0], args.cfg[1]))
     n = len(cfg_scales) * len(pipeline.classes)
@@ -55,7 +62,7 @@ def sample(args):
     t0 = time.perf_counter()
     images = pipeline.sample(cfg_scales, seed=args.seed, sampler=args.sampler,
                              num_inference_steps=args.steps, eta=args.eta,
-                             progress=args.progress).cpu()
+                             progress=args.progress, devices=devices).cpu()
     dt = time.perf_counter() - t0
     logging.info(f"Sampled {n} images in {dt:.2f}s ({n / dt:.2f} img/s).")
     return pipeline, cfg_scales, images, dt

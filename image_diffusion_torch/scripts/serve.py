@@ -26,8 +26,11 @@ so a request's image depends only on its (class, cfg_scale, seed), not on
 what it was batched with or its slot.  The streams are torch's, so a seed
 gives other images than the JAX package's server.
 
-Runs on the CUDA card unless `--device cpu` is given.  Not ported yet:
-`--data-parallel` (multi-GPU serving).
+Runs on the CUDA card unless `--device cpu` is given.  `--data-parallel
+N` shards each batch over the first N cards in this process, one replica
+of the weights a card (`DiffusionPipeline.sample_batch(devices=)`; N must
+divide `--batch-size`; on the CPU, N shards); a row's generator goes with
+it, so its image does not change.
 """
 
 from __future__ import annotations
@@ -62,6 +65,9 @@ def parse_args(argv=None):
                    help="Inference steps for ddim/dpm (ddpm always runs the "
                         "full training schedule).")
     p.add_argument("--eta", type=float, default=0.0, help="DDIM stochasticity.")
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="Shard each batch over N cards (batch-size must divide N; default: "
+                        "single device).")
     add_device_argument(p)
     return p.parse_args(argv)
 
@@ -71,13 +77,20 @@ class Engine:
     and the finisher thread that answers them."""
 
     def __init__(self, args):
+        from ..parallel.mesh import shard_devices
         from ..pipelines import DiffusionPipeline
 
         self.args = args
+        self.B = args.batch_size
+        self.devices = None
+        if args.data_parallel:
+            self.devices = shard_devices(args.device, args.data_parallel, every_card=False)
+            if self.B % args.data_parallel != 0:
+                raise SystemExit(
+                    f"--data-parallel {args.data_parallel} must divide --batch-size {self.B}")
         self.pipe = DiffusionPipeline.from_checkpoint(args.model, device=args.device)
         self.device = self.pipe.device
         self.classes = self.pipe.classes
-        self.B = args.batch_size
         self.sampler = args.sampler
         self.requests: queue.Queue[tuple[dict, queue.Queue]] = queue.Queue()
         self.compiled = False
@@ -105,7 +118,7 @@ class Engine:
             return self.pipe.sample_batch(
                 labels, scales, x_init, sampler=self.sampler,
                 num_inference_steps=self.args.steps, eta=float(self.args.eta),
-                row_generators=gens, output="uint8")
+                row_generators=gens, output="uint8", devices=self.devices)
 
     @property
     def steps(self) -> int:

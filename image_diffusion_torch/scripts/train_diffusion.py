@@ -3,7 +3,15 @@ scripts/train_diffusion.py.
 
     python -m image_diffusion_torch.scripts.train_diffusion --config configs/diff-kl-lin-32x32.yaml
 
-Runs on the CUDA card unless `--device cpu` is given.  Reads the latents
+Runs on the CUDA card unless `--device cpu` is given.  Under `torchrun`
+it trains data-parallel, one process per card:
+
+    torchrun --nproc-per-node 8 -m image_diffusion_torch.scripts.train_diffusion \
+        --config configs/diff-kl-lin-32x32.yaml
+
+rank r on `cuda:LOCAL_RANK` over NCCL (with `--device cpu`, on the CPU over
+gloo); `--data-parallel`, when given, must equal the number of processes.
+Reads the latents
 (NCHW datasets are converted once to NHWC) and labels named by the config,
 trains, and writes per-epoch checkpoints in the JAX trainer's layout.
 `--remat` overrides the config's activation remat policy; `--preview-vae`
@@ -18,6 +26,7 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
+import torch
 
 from ..core.cli import add_device_argument
 
@@ -41,6 +50,9 @@ def parse_args(argv=None):
     p.add_argument("--remat", choices=["none", "dots", "full"], default=None,
                    help="Activation remat policy of the train step (overrides the YAML "
                         "`remat:` key; see models/unet.py).")
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="Data-parallel mesh size (default: every process of the torchrun "
+                        "launch; one process per card).")
     add_device_argument(p)
     return p.parse_args(argv)
 
@@ -53,9 +65,12 @@ def main(argv=None):
     from ..core.logging import BasicLogger, get_run_name
     from ..core.metrics import MetricHolder
     from ..core.profiling import trace
+    from ..parallel.mesh import initialize_distributed, trainer_mesh
     from ..training.data import ArrayDataset
     from ..training.diffusion_trainer import DiffusionTrainer
 
+    device = initialize_distributed(args.device)
+    mesh = trainer_mesh(args.data_parallel, device)
     overrides = {} if args.remat is None else {"remat": args.remat}
     cfg = DiffusionConfig.from_yaml(args.config, **overrides)
     run_name = args.experiment_name or get_run_name("unet")
@@ -71,11 +86,13 @@ def main(argv=None):
     labels = np.load(cfg.train.train_labels)
     trainer = DiffusionTrainer(cfg, ArrayDataset(latents, labels), logger, holder,
                                checkpoint=args.checkpoint, run_name=run_name,
-                               device=args.device, preview_vae=args.preview_vae,
+                               device=device, preview_vae=args.preview_vae,
                                preview_freq=args.preview_freq, preview_steps=args.preview_steps,
-                               debug_nans=args.debug_nans)
+                               debug_nans=args.debug_nans, mesh=mesh)
     with trace():
         trainer.train()
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return trainer
 
 

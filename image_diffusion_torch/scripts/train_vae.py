@@ -4,7 +4,10 @@ scripts/train_vae.py.
     python -m image_diffusion_torch.scripts.train_vae --config configs/vae-kl-32x32.yaml \
         --lpips-weights vgg_lpips.pth
 
-Runs on the CUDA card unless `--device cpu` is given.  Reads the uint8
+Runs on the CUDA card unless `--device cpu` is given, and data-parallel
+under `torchrun`, one process per card, as `train_diffusion` does
+(`--data-parallel`, when given, must equal the number of processes).
+Reads the uint8
 NHWC images named by the config (`train_set`, and `dev_set` when it exists),
 trains the KL or VQ VAE-GAN (`configs/vae-kl-32x32.yaml`,
 `configs/vae-vq-32x32.yaml`) at any `grad_accum` that divides the batch,
@@ -25,6 +28,7 @@ import os
 import warnings
 
 import numpy as np
+import torch
 
 from ..core.cli import add_device_argument
 
@@ -47,6 +51,9 @@ def parse_args(argv=None):
     p.add_argument("--debug-nans", action="store_true",
                    help="Anomaly detection in the backward, and stop at the first non-finite "
                         "loss or gradient norm (FloatingPointError naming the step).")
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="Data-parallel mesh size (default: every process of the torchrun "
+                        "launch; one process per card).")
     add_device_argument(p)
     return p.parse_args(argv)
 
@@ -62,9 +69,12 @@ def main(argv=None):
     from ..models.fid import FID
     from ..models.inception import load_inception
     from ..models.lpips import try_load_lpips
+    from ..parallel.mesh import initialize_distributed, trainer_mesh
     from ..training.data import ArrayDataset
     from ..training.vae_trainer import VAETrainer
 
+    device = initialize_distributed(args.device)
+    mesh = trainer_mesh(args.data_parallel, device)
     cfg = VAEConfig.from_yaml(args.config)
     run_name = args.experiment_name or get_run_name("vae")
     logger = BasicLogger(cfg.train.logs_dir, run_name, args.no_mlflow, cfg.train.log_interval)
@@ -86,16 +96,18 @@ def main(argv=None):
 
     fid_fn = None
     if args.fid_weights:
-        fid_fn = FID(load_inception(args.fid_weights, args.device), 2048)
+        fid_fn = FID(load_inception(args.fid_weights, device), 2048)
         logger.log_console("Per-epoch dev FID enabled (InceptionV3 pool3).")
 
     train_ds = ArrayDataset(np.load(cfg.train.train_set))
     dev_ds = ArrayDataset(np.load(cfg.train.dev_set)) if os.path.exists(cfg.train.dev_set) else None
     trainer = VAETrainer(cfg, train_ds, dev_ds, logger, holder, checkpoint=args.checkpoint,
-                         run_name=run_name, percept_fn=percept_fn, device=args.device,
-                         fid_fn=fid_fn, debug_nans=args.debug_nans)
+                         run_name=run_name, percept_fn=percept_fn, device=device,
+                         fid_fn=fid_fn, debug_nans=args.debug_nans, mesh=mesh)
     with trace():
         trainer.train()
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return trainer
 
 

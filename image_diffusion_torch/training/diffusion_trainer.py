@@ -22,7 +22,16 @@ a frozen VAE and logged as a figure (`Preview`).  With `debug_nans`, the
 backward runs under autograd's anomaly detection and a loss or gradient
 norm that is not finite raises `FloatingPointError` naming the step.
 
-Not ported yet: data-parallel and FSDP training.
+Under a mesh (`parallel.mesh`, one process per card) every rank takes its
+rows of each global batch, draws the step's randomness at the global
+batch's shape and keeps its rows, and averages the loss and the gradients
+over the data group with an explicit all-reduce before the global-norm
+clip, the JAX package's pmean: the step equals the one-device step up to
+fp reassociation, at any `grad_accum`.  With `param_sharding="fsdp"` the
+UNet, its gradients, Adam's moments and the EMA are sharded over the
+"model" axis (`parallel.fsdp`), every rank takes its own rows, and the
+clip uses the whole gradient's norm.  Checkpoints gather the whole state on
+every rank and are written by rank 0 alone, as are metrics and previews.
 """
 
 from __future__ import annotations
@@ -33,10 +42,11 @@ from typing import Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..compat.from_jax import adam_moments, adam_tree, unet_flax_params, unet_state_dict
 from ..core import checkpoint as ckpt
-from ..core import resolve_device
+from ..core import is_main_process, resolve_device
 from ..core.config import DiffusionConfig
 from ..core.logging import BasicLogger
 from ..core.metrics import MetricHolder
@@ -50,6 +60,9 @@ from ..models.io import read_vae
 from ..models.unet import UNet
 from ..models.vae import VAE
 from ..ops import schedule as S
+from ..parallel.fsdp import copy_full_, full, local, shard_params_fsdp, sharded_global_norm
+from ..parallel.mesh import (DataShard, Mesh, all_reduce_mean_, any_rank, broadcast_int,
+                             global_row_draw, trainer_shard)
 from .data import ArrayDataset, epoch_batches, steps_per_epoch
 
 
@@ -78,6 +91,16 @@ def run_step(train_step: Callable[..., dict], debug_nans: bool, where: str, *arg
     return metrics
 
 
+def preempted(guard: PreemptionGuard, shard: DataShard | None, flush: bool,
+              device: torch.device) -> bool:
+    """Whether a training loop stops on SIGTERM after this step.  Under a
+    mesh the ranks agree at flush steps, where the loop syncs anyway, so
+    that all of them save (a collective under FSDP) after the same step."""
+    if shard is None:
+        return guard.triggered
+    return flush and any_rank(guard.triggered, device)
+
+
 def warmup_schedule(learning_rate: float, warmup_steps: int) -> Callable[[int], float]:
     """lr/100 -> lr linearly over `warmup_steps` updates, then constant."""
     min_lr = learning_rate / 100.0
@@ -97,7 +120,9 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
 
 def clip_by_global_norm_(grads: list[torch.Tensor], norm: torch.Tensor, max_norm: float) -> None:
     """optax's clip_by_global_norm in place: g unchanged when norm <
-    max_norm, else (g / norm) * max_norm.  No host sync."""
+    max_norm, else (g / norm) * max_norm.  No host sync.  Sharded
+    gradients are scaled shard by shard."""
+    grads = [local(g) for g in grads]
     keep = norm < max_norm
     torch._foreach_div_(grads, torch.where(keep, torch.ones_like(norm), norm))
     torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm).to(norm.dtype))
@@ -106,26 +131,39 @@ def clip_by_global_norm_(grads: list[torch.Tensor], norm: torch.Tensor, max_norm
 class Optimizer:
     """Gradient clipping, then Adam at the warmup schedule's learning rate,
     over a list of fp32 parameters (their `.grad`s are the input).  `count`
-    is the number of updates applied."""
+    is the number of updates applied.  `grad_norm` computes the global norm
+    the clip uses (`global_norm`; FSDP passes the sharded one)."""
 
     def __init__(self, params, learning_rate: float, warmup_steps: int,
-                 clip_grad: float | None):
+                 clip_grad: float | None,
+                 grad_norm: Callable[[list[torch.Tensor]], torch.Tensor] = global_norm):
         self.params = list(params)
         self.schedule = warmup_schedule(learning_rate, warmup_steps)
         self.clip_grad = clip_grad
-        self.adam = torch.optim.Adam(self.params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        self.grad_norm = grad_norm
+        # sharded (DTensor) and whole parameters in separate groups: Adam's
+        # foreach kernels take one kind of tensor at a time
+        groups = [[p for p in self.params if isinstance(p, DTensor)],
+                  [p for p in self.params if not isinstance(p, DTensor)]]
+        self.adam = torch.optim.Adam([{"params": g} for g in groups if g], lr=learning_rate,
+                                     betas=(0.9, 0.999), eps=1e-8)
         self.count = 0
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
 
+    def grads(self) -> list[torch.Tensor]:
+        """Every parameter's gradient, a zero one where the parameter got
+        none (unused, as in JAX)."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return [p.grad for p in self.params]
+
     def step(self) -> torch.Tensor:
         """Clip and apply the gradients; -> their global norm before the clip."""
-        for p in self.params:
-            if p.grad is None:  # an unused parameter: a zero gradient, as in JAX
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        grads = self.grads()
+        norm = self.grad_norm(grads)
         if self.clip_grad is not None:
             clip_by_global_norm_(grads, norm, self.clip_grad)
         for group in self.adam.param_groups:
@@ -146,14 +184,15 @@ class Optimizer:
 
     @torch.no_grad()
     def load(self, count: int, mu: list[torch.Tensor], nu: list[torch.Tensor]) -> None:
-        """Set the update count and the moments (any device and layout)."""
+        """Set the update count and the moments (whole tensors on any
+        device; a sharded parameter takes its shard)."""
         self.count = count
         for p, m, v in zip(self.params, mu, nu, strict=True):
-            self.adam.state[p] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
-                "exp_avg": torch.empty_like(p).copy_(m),
-                "exp_avg_sq": torch.empty_like(p).copy_(v),
-            }
+            exp_avg, exp_avg_sq = torch.empty_like(p), torch.empty_like(p)
+            copy_full_(exp_avg, m)
+            copy_full_(exp_avg_sq, v)
+            self.adam.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                                  "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq}
 
 
 @dataclass
@@ -193,7 +232,7 @@ def draw(generator: torch.Generator, x_shape, num_steps: int, reparametrize: boo
 
 def make_train_step(sched: S.Schedule, cond_drop_prob: float, reparametrize: bool,
                     ema_decay: float | None = None, grad_accum: int = 1,
-                    debug_nans: bool = False):
+                    debug_nans: bool = False, shard: DataShard | None = None):
     """-> train_step(state, x, c, draws) -> {"unet/loss", "unet/grad"}, 0-d
     device tensors.  `x` holds stored latents (B, H, W, 2z for KL), `c`
     class ids; `draws` is a `Draws` or a generator to draw them from.
@@ -202,11 +241,20 @@ def make_train_step(sched: S.Schedule, cond_drop_prob: float, reparametrize: boo
     gradients are summed and divided once; the MSE's gradient is linear, so
     the update equals the single-shot step's up to fp reassociation.
     `debug_nans` checks each micro-batch's loss before its backward
-    (`check_finite`)."""
+    (`check_finite`).
+
+    With a `shard`, `x` and `c` are its rows of the global batch
+    (`DataShard.rows`), a generator's draws are made at the global batch's
+    shape and cut to those rows (`draws` given are this shard's), and the
+    loss and the gradients FSDP does not reduce are averaged over the
+    shard's group before the clip."""
 
     def train_step(state: TrainState, x: torch.Tensor, c: torch.Tensor, draws) -> dict:
         if isinstance(draws, torch.Generator):
-            draws = draw(draws, x.shape, sched.num_steps, reparametrize)
+            gen, world = draws, 1 if shard is None else shard.world
+            shape = (x.shape[0] * world, *x.shape[1:])
+            draws = global_row_draw(lambda: draw(gen, shape, sched.num_steps, reparametrize),
+                                    None if shard is None else shard.rows(shape[0], grad_accum))
         x = x.float()
         if reparametrize:
             x = VAE.reparametrize(x, draws.z_noise)
@@ -229,12 +277,19 @@ def make_train_step(sched: S.Schedule, cond_drop_prob: float, reparametrize: boo
                 total = loss.detach() if i == 0 else total + loss.detach()
         if a > 1:
             total = total / a
-            torch._foreach_div_([p.grad for p in opt.params if p.grad is not None], float(a))
+            torch._foreach_div_([local(p.grad) for p in opt.params if p.grad is not None],
+                                float(a))
+        if shard is not None:
+            # equal shards: the mean of their means is the global mean
+            # (FSDP has averaged the sharded gradients already)
+            all_reduce_mean_([total] + [g for g in opt.grads() if not isinstance(g, DTensor)],
+                             shard.group)
         grad_norm = opt.step()
         if ema_decay:
             with torch.no_grad():
-                torch._foreach_mul_(state.ema, ema_decay)
-                torch._foreach_add_(state.ema, opt.params, alpha=1.0 - ema_decay)
+                ema = [local(e) for e in state.ema]
+                torch._foreach_mul_(ema, ema_decay)
+                torch._foreach_add_(ema, [local(p) for p in opt.params], alpha=1.0 - ema_decay)
         return {"unet/loss": total, "unet/grad": grad_norm}
 
     return train_step
@@ -272,21 +327,32 @@ class Preview:
 
 
 class DiffusionTrainer:
-    """Host-side orchestration: epochs, metrics, previews, checkpoints."""
+    """Host-side orchestration: epochs, metrics, previews, checkpoints.
+
+    `mesh`: a process-group mesh (`parallel.mesh.make_mesh` after
+    `initialize_distributed`, one process per card, `device` this rank's);
+    `param_sharding` "replicated" or "fsdp" (the JAX trainer's).  FSDP
+    shards over a "model" axis above 1; at 1 it is replicated."""
 
     def __init__(self, config: DiffusionConfig, train_set: ArrayDataset, logger: BasicLogger,
                  holder: MetricHolder, checkpoint: str | None = None, run_name: str = "unet",
                  device: str | torch.device = "cuda", preview_vae: str | None = None,
                  preview_freq: int = 0, preview_scale: float = 3.0, preview_steps: int = 20,
-                 debug_nans: bool = False):
+                 debug_nans: bool = False, mesh: Mesh | None = None,
+                 param_sharding: str = "replicated"):
         tc = config.train
         tc.validate_accum()
+        if param_sharding not in ("replicated", "fsdp"):
+            raise ValueError(f"unknown param_sharding {param_sharding!r}; expected 'replicated' "
+                             "or 'fsdp'")
         self.cfg = config
         self.train_set = train_set
         self.logger = logger
         self.holder = holder
         self.run_name = run_name
         self.device = resolve_device(device)
+        self.fsdp = mesh is not None and param_sharding == "fsdp" and mesh.model > 1
+        self.shard = trainer_shard(mesh, tc.batch_size, tc.grad_accum, over_model=self.fsdp)
 
         # fp32 parameters, compute in the config's dtype; init from seed 0
         self.unet = build_unet(config.arch, dtype=tc.compute_dtype, device=self.device,
@@ -296,19 +362,34 @@ class DiffusionTrainer:
         self.sched = S.make_schedule(config.schedule.num_steps, config.schedule.beta_start,
                                      config.schedule.beta_end, config.schedule.noise_type,
                                      device=self.device)
+        n_params = sum(p.numel() for p in self.unet.parameters())
+        trees, meta = ckpt.load_checkpoint(checkpoint) if checkpoint is not None else (None, None)
+        if trees is not None:
+            self.unet.load_state_dict(unet_state_dict(trees["unet"]))
+
+        self.preview, self.preview_freq = None, preview_freq if preview_vae else 0
+        if self.preview_freq > 0 and is_main_process():
+            pyplot()  # fails here, not at the first preview, without matplotlib
+            self.preview = Preview(preview_vae, config, self.unet.state_dict(), preview_steps,
+                                   preview_scale, self.device)
+
+        grad_norm = global_norm
+        if self.fsdp:
+            shard_params_fsdp(mesh, self.unet)
+            model_group = mesh.group("model")
+            grad_norm = lambda grads: sharded_global_norm(grads, model_group)  # noqa: E731
         optimizer = Optimizer(self.unet.parameters(), tc.learning_rate, tc.warmup_steps,
-                              tc.clip_grad)
+                              tc.clip_grad, grad_norm)
         ema = [p.detach().clone() for p in optimizer.params] if tc.ema_decay else None
         self.state = TrainState(self.unet, optimizer, ema)
         self.saver = ckpt.AsyncSaver()
 
-        n_params = sum(p.numel() for p in optimizer.params)
         logger.log_console(f"Unet has {n_params:,} params.")
         logger.log_console(f"Train set has {len(train_set)} items.")
 
         self.curr_epoch = 0
-        if checkpoint is not None:
-            self._restore(checkpoint)
+        if trees is not None:
+            self._restore(trees, meta)
             logger.log_console(f"Loading model checkpoint from {checkpoint}")
         else:
             logger.log_console("No checkpoint provided. Training from scratch.")
@@ -316,43 +397,47 @@ class DiffusionTrainer:
         self.debug_nans = debug_nans
         self.train_step = make_train_step(
             self.sched, tc.cond_drop_prob, reparametrize=(tc.ae_type == "kl"),
-            ema_decay=tc.ema_decay, grad_accum=tc.grad_accum, debug_nans=debug_nans)
-        self.preview, self.preview_freq = None, preview_freq
-        if preview_vae and preview_freq > 0:
-            pyplot()  # fails here, not at the first preview, without matplotlib
-            self.preview = Preview(preview_vae, config, self.unet.state_dict(), preview_steps,
-                                   preview_scale, self.device)
+            ema_decay=tc.ema_decay, grad_accum=tc.grad_accum, debug_nans=debug_nans,
+            shard=self.shard)
 
     def _named(self, tensors: list[torch.Tensor]) -> dict[str, torch.Tensor]:
         return dict(zip(self.names, tensors, strict=True))
 
     @torch.no_grad()
-    def _restore(self, path: str) -> None:
-        trees, meta = ckpt.load_checkpoint(path)
-        self.unet.load_state_dict(unet_state_dict(trees["unet"]))
+    def _restore(self, trees: dict, meta: dict) -> None:
+        """The EMA, Adam's moments and counts and the epoch from a
+        checkpoint's trees (the parameters were loaded before sharding)."""
         opt = self.state.optimizer
         if self.state.ema is not None:
             # without a saved EMA, seed it from the restored parameters
             src = unet_state_dict(trees["unet_ema"]) if "unet_ema" in trees else None
             for e, name, p in zip(self.state.ema, self.names, opt.params):
-                e.copy_(src[name] if src is not None else p)
+                copy_full_(e, src[name] if src is not None else local(p))
         _, mu, nu = adam_moments(trees["optim"])
         mu, nu = unet_state_dict(mu), unet_state_dict(nu)
         opt.load(int(trees["step"]["step"]), [mu[n] for n in self.names],
                  [nu[n] for n in self.names])
         self.curr_epoch = int(meta["epoch"]) + 1
 
+    @torch.no_grad()
     def save(self, epoch: int, asynchronous: bool = False) -> str:
         """Write the trainer checkpoint (JAX layout) of the current state;
-        `asynchronous` copies to the host here and writes on a thread."""
+        `asynchronous` copies to the host here and writes on a thread.
+        Every rank calls it: under FSDP each takes part in gathering the
+        whole state; rank 0 alone writes."""
         path = os.path.join(self.cfg.train.checkpoints_dir, self.run_name,
                             f"unet-epoch-{epoch:02}.ckpt")
         opt = self.state.optimizer
         mu, nu = opt.moments()
+        params, ema = opt.params, self.state.ema
+        if self.fsdp:  # gather BEFORE the writer gate
+            params, mu, nu = ([full(t) for t in ts] for ts in (params, mu, nu))
+            ema = None if ema is None else [full(t) for t in ema]
+        if not is_main_process():
+            return path
         trees = dict(
-            unet=unet_flax_params(self._named(opt.params)),
-            unet_ema=(unet_flax_params(self._named(self.state.ema))
-                      if self.state.ema is not None else None),
+            unet=unet_flax_params(self._named(params)),
+            unet_ema=unet_flax_params(self._named(ema)) if ema is not None else None,
             optim=adam_tree(opt.count, unet_flax_params(self._named(mu)),
                             unet_flax_params(self._named(nu)), clipped=opt.clip_grad is not None),
             step={"step": np.asarray(opt.count, dtype=np.int64)},  # as flax writes it
@@ -372,10 +457,14 @@ class DiffusionTrainer:
             cond_drop_prob=cfg.cond_drop_prob,
             scheduler=f"{sc.noise_type} : [{sc.beta_start} - {sc.beta_end}] in {sc.num_steps} steps",
         )
-        # the seed offset by the epoch count keeps resumed sub-runs' draws fresh
+        # the seed offset by the epoch count keeps resumed sub-runs' draws
+        # fresh; every rank takes rank 0's
         root = root_seed(cfg.seed, offset=cfg.epochs)
+        if self.shard is not None:
+            root = broadcast_int(root, self.device)
         spe = steps_per_epoch(self.train_set, cfg.batch_size)
         guard = PreemptionGuard()
+        rank, world = (0, 1) if self.shard is None else (self.shard.rank, self.shard.world)
 
         for epoch in range(self.curr_epoch, cfg.epochs):
             eseed = epoch_seed(root, epoch)
@@ -385,7 +474,7 @@ class DiffusionTrainer:
             epoch_loss_sum, loss_steps, steps_in_buffer = 0.0, 0, 0
             timer = StepTimer()
             batches = epoch_batches(self.train_set, cfg.batch_size, numpy_seed(eseed),
-                                    device=self.device)
+                                    self.device, rank, world, cfg.grad_accum)
             for step, (x, c) in enumerate(progress(batches, total=spe, desc=f"epoch {epoch}")):
                 adjusted_step = epoch * spe + step
                 metrics = run_step(self.train_step, self.debug_nans,
@@ -394,7 +483,8 @@ class DiffusionTrainer:
                 self.holder.store_variable("unet/lr", self.state.optimizer.schedule(adjusted_step))
                 steps_in_buffer += 1
 
-                if (adjusted_step + 1) % cfg.log_interval == 0:
+                flush = (adjusted_step + 1) % cfg.log_interval == 0
+                if flush:
                     flushed = self.holder.flush()  # the sync: waits for the last step
                     flushed["unet/samples_per_sec"] = timer.items_per_sec(
                         steps_in_buffer * cfg.batch_size, metrics["unet/loss"])
@@ -403,7 +493,7 @@ class DiffusionTrainer:
                     loss_steps += steps_in_buffer
                     steps_in_buffer = 0
 
-                if guard.triggered:
+                if preempted(guard, self.shard, flush, self.device):
                     # meta epoch = the last completed epoch (-1 when none):
                     # resuming replays the interrupted epoch
                     path = self.save(epoch - 1)
@@ -415,7 +505,7 @@ class DiffusionTrainer:
                 epoch_loss_sum += tail.get("unet/loss", 0.0) * steps_in_buffer
                 loss_steps += steps_in_buffer
             self.logger.log_metric("unet/epoch_loss", epoch_loss_sum / max(loss_steps, 1), step=epoch)
-            if self.preview is not None and (epoch + 1) % self.preview_freq == 0:
+            if self.preview_freq > 0 and (epoch + 1) % self.preview_freq == 0:
                 self._log_preview(epoch)
             path = self.save(epoch, asynchronous=True)
             self.logger.log_console(f"Saving checkpoint {path} (async)")
@@ -423,8 +513,13 @@ class DiffusionTrainer:
 
     def _log_preview(self, epoch: int) -> None:
         """The preview grid of the current weights (the EMA's when kept),
-        logged as previews/epoch_{epoch:03}.png."""
+        logged as previews/epoch_{epoch:03}.png by rank 0 (every rank
+        gathers sharded weights)."""
         weights = self.state.ema if self.state.ema is not None else self.state.optimizer.params
+        with torch.no_grad():
+            weights = [full(w) for w in weights]
+        if self.preview is None:
+            return
         imgs = self.preview.images(self._named(weights), seed=epoch)
         fig = plot_cfg_grid(imgs.cpu().numpy(), self.preview.classes, [self.preview.scale])
         self.logger.log_figure(f"previews/epoch_{epoch:03}.png", fig)

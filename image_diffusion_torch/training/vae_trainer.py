@@ -44,7 +44,17 @@ beside their reconstructions.  With `debug_nans`, the backward runs under
 autograd's anomaly detection and a loss or gradient norm that is not
 finite raises `FloatingPointError` naming the step.
 
-Not ported yet: data-parallel meshes.
+Under a mesh (`parallel.mesh`, one process per card, parameters
+replicated) every rank takes its share of each global micro-batch
+(`rank_rows`: BatchNorm's statistics are per micro-batch, so each
+micro-batch must hold the rows it holds on one device), draws the flips
+and noise at the global batch's shape and keeps its rows, and averages
+each phase's gradients over the data group before its clip, and the
+metrics after the step.  The discriminator's BatchNorm statistics and the
+codebook's statistics and histogram are reduced over the data group inside
+the models (`group`), and the dev evaluation's sums and FID statistics
+after it: the step and the evaluation equal the one-device ones up to fp
+reassociation.  Only rank 0 writes checkpoints, metrics and figures.
 """
 
 from __future__ import annotations
@@ -55,6 +65,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..compat.from_jax import (
     adam_moments,
@@ -66,7 +77,7 @@ from ..compat.from_jax import (
     vae_state_dict,
 )
 from ..core import checkpoint as ckpt
-from ..core import resolve_device
+from ..core import is_main_process, resolve_device
 from ..core.config import VAEConfig
 from ..core.logging import BasicLogger
 from ..core.metrics import MetricHolder
@@ -80,8 +91,10 @@ from ..models.discriminator import Discriminator
 from ..models.fid import FID
 from ..models.lpips import LPIPS
 from ..models.vae import VAE
+from ..parallel.mesh import (DataShard, Mesh, all_reduce_mean_, broadcast_int, global_row_draw,
+                             trainer_shard)
 from .data import ArrayDataset, epoch_batches, eval_batches, steps_per_epoch
-from .diffusion_trainer import Optimizer, check_finite, run_step
+from .diffusion_trainer import Optimizer, check_finite, preempted, run_step
 from .losses import D_LOSSES, G_LOSSES, recon_loss, recon_loss_per_sample
 
 
@@ -144,12 +157,16 @@ def _set_grads(params: list[torch.Tensor], acc: list, n: int) -> None:
 
 
 def make_vae_train_step(cfg: VAEConfig, percept_fn: Callable | None = None,
-                        debug_nans: bool = False):
+                        debug_nans: bool = False, shard: DataShard | None = None):
     """-> train_step(state, x_u8, draws, disc_active) -> metrics, 0-d device
     tensors.  `draws` is a `VAEDraws` or a generator to draw them from.
     `percept_fn(real, fake)` is the LPIPS term (None: it contributes 0).
     `debug_nans` checks each objective before its backward
-    (`check_finite`)."""
+    (`check_finite`).  With a `shard`, `x_u8` holds its rows of the global
+    batch (`DataShard.rows`), a generator's draws are made at the global
+    batch's shape and cut to those rows (`draws` given are this shard's),
+    and gradients and metrics are averaged over the shard's group (the
+    models' BatchNorm and codebook reduce their own statistics)."""
     tc = cfg.train
     d_loss_fn, g_loss_fn = D_LOSSES[tc.gan_loss], G_LOSSES[tc.gan_loss]
     is_vq, accum = cfg.arch.bottleneck == "vq", tc.grad_accum
@@ -160,7 +177,10 @@ def make_vae_train_step(cfg: VAEConfig, percept_fn: Callable | None = None,
 
     def train_step(state: VAETrainState, x_u8: torch.Tensor, draws, disc_active: bool) -> dict:
         if isinstance(draws, torch.Generator):
-            draws = draw(draws, x_u8.shape[0], _latent_shape(cfg, x_u8))
+            gen, world = draws, 1 if shard is None else shard.world
+            batch = x_u8.shape[0] * world
+            draws = global_row_draw(lambda: draw(gen, batch, _latent_shape(cfg, x_u8)),
+                                    None if shard is None else shard.rows(batch, accum))
         x = normalize_batch(x_u8, draws.flip)
         micro = list(zip(x.chunk(accum), draws.noise.chunk(accum)))
         sums: dict[str, torch.Tensor] = {}
@@ -194,6 +214,8 @@ def make_vae_train_step(cfg: VAEConfig, percept_fn: Callable | None = None,
                      "gan/fake_acc": (torch.sigmoid(out_fake.detach()) < 0.5).float().mean(),
                      "gan/real_acc": (torch.sigmoid(out_real.detach()) >= 0.5).float().mean()})
             _set_grads(d_params, acc, accum)
+            if shard is not None:
+                all_reduce_mean_(state.disc_opt.grads(), shard.group)
             disc_grad = state.disc_opt.step()
 
         # phase 2: the VAE, through the updated discriminator
@@ -219,7 +241,12 @@ def make_vae_train_step(cfg: VAEConfig, percept_fn: Callable | None = None,
             if is_vq:
                 add({"vae/perplexity": perplexity})
         _set_grads(v_params, acc, accum)
+        if shard is not None:
+            all_reduce_mean_(state.vae_opt.grads(), shard.group)
         metrics = {k: v / accum for k, v in sums.items()}
+        if shard is not None:  # the perplexity is the global histogram's already
+            all_reduce_mean_([v for k, v in metrics.items() if k != "vae/perplexity"],
+                             shard.group)
         metrics["vae/vae_grad"] = state.vae_opt.step()
         if disc_active:
             metrics["gan/disc_grad"] = disc_grad
@@ -255,15 +282,21 @@ def make_eval_step(percept_fn: Callable | None = None):
 
 
 class VAETrainer:
-    """Host-side orchestration: epochs, metrics, dev evaluation, checkpoints."""
+    """Host-side orchestration: epochs, metrics, dev evaluation, checkpoints.
+
+    `mesh`: a process-group mesh (`parallel.mesh.make_mesh` after
+    `initialize_distributed`, one process per card, `device` this rank's);
+    the parameters are replicated and the data split over its "data"
+    axis."""
 
     def __init__(self, config: VAEConfig, train_set: ArrayDataset, dev_set: ArrayDataset | None,
                  logger: BasicLogger, holder: MetricHolder, checkpoint: str | None = None,
                  run_name: str = "vae", percept_fn: LPIPS | None = None,
                  device: str | torch.device = "cuda", fid_fn: FID | None = None,
-                 debug_nans: bool = False):
+                 debug_nans: bool = False, mesh: Mesh | None = None):
         tc = config.train
         tc.validate_accum()
+        self.shard = trainer_shard(mesh, tc.batch_size, tc.grad_accum)
         self.cfg = config
         self.train_set = train_set
         self.dev_set = dev_set
@@ -288,6 +321,9 @@ class VAETrainer:
             vae, disc, Optimizer(vae.parameters(), tc.learning_rate, tc.warmup_steps, tc.clip_grad),
             # only the VAE's optimizer warms up, as in the reference
             Optimizer(disc.parameters(), tc.learning_rate, 0, tc.clip_grad))
+        if self.shard is not None:  # batch statistics of the global batch
+            for m in [*disc.norms.values(), *([vae.codebook] if hasattr(vae, "codebook") else [])]:
+                m.group = self.shard.group
         self.vae_names = [n for n, _ in vae.named_parameters()]
         self.disc_names = [n for n, _ in disc.named_parameters()]
         self.saver = ckpt.AsyncSaver()
@@ -300,7 +336,7 @@ class VAETrainer:
             logger.log_console(f"Loading model checkpoint from {checkpoint}")
         else:
             logger.log_console("No checkpoint provided. Training from scratch.")
-        self.train_step = make_vae_train_step(config, percept_fn, debug_nans)
+        self.train_step = make_vae_train_step(config, percept_fn, debug_nans, self.shard)
         self.eval_step = make_eval_step(percept_fn)
         # the fixed plot set of the periodic reconstruction figures
         self.plot_images = None
@@ -328,9 +364,12 @@ class VAETrainer:
 
     def save(self, epoch: int, asynchronous: bool = False) -> str:
         """Write the trainer checkpoint (JAX layout) of the current state;
-        `asynchronous` copies to the host here and writes on a thread."""
+        `asynchronous` copies to the host here and writes on a thread.
+        Under a mesh only rank 0 writes (every rank holds the state)."""
         path = os.path.join(self.cfg.train.checkpoints_dir, self.run_name,
                             f"vae-epoch-{epoch:02}.ckpt")
+        if not is_main_process():
+            return path
         st = self.state
 
         def vae_tree(tensors):
@@ -366,8 +405,11 @@ class VAETrainer:
         cfg = self.cfg.train
         self.logger.log_params(lr=cfg.learning_rate, disc_weight=cfg.disc_weight,
                                disc_start=cfg.disc_start, loss=cfg.gan_loss)
-        # the seed offset by the epoch count keeps resumed sub-runs' draws fresh
+        # the seed offset by the epoch count keeps resumed sub-runs' draws
+        # fresh; every rank takes rank 0's
         root = root_seed(cfg.seed, offset=cfg.epochs)
+        if self.shard is not None:
+            root = broadcast_int(root, self.device)
         spe = steps_per_epoch(self.train_set, cfg.batch_size)
         guard = PreemptionGuard()
 
@@ -376,7 +418,7 @@ class VAETrainer:
             gen = step_generator(eseed, self.device)
             steps_in_window, timer = 0, StepTimer()
             batches = epoch_batches(self.train_set, cfg.batch_size, numpy_seed(eseed),
-                                    device=self.device)
+                                    self.device, *self._shard_of(), cfg.grad_accum)
             for step, (x,) in enumerate(progress(batches, total=spe, desc=f"epoch {epoch}")):
                 adjusted_step = epoch * spe + step
                 if self.plot_images is not None and (adjusted_step + 1) % cfg.log_imgs_freq == 0:
@@ -387,14 +429,15 @@ class VAETrainer:
                 self.holder.store_dict(metrics)
                 steps_in_window += 1
 
-                if (adjusted_step + 1) % cfg.log_interval == 0:
+                flush = (adjusted_step + 1) % cfg.log_interval == 0
+                if flush:
                     flushed = self.holder.flush()  # the sync: waits for the last step
                     flushed["util/imgs_per_sec"] = timer.items_per_sec(
                         steps_in_window * cfg.batch_size, metrics["vae/vae_grad"])
                     steps_in_window = 0
                     self.logger.log_metrics(flushed, step=adjusted_step)
 
-                if guard.triggered:
+                if preempted(guard, self.shard, flush, self.device):
                     # meta epoch = the last completed epoch (-1 when none):
                     # resuming replays the interrupted epoch
                     path = self.save(epoch - 1)
@@ -407,15 +450,21 @@ class VAETrainer:
             self.logger.log_console(f"Saving checkpoint {path} (async)")
         self.saver.wait()
 
+    def _shard_of(self) -> tuple[int, int]:
+        """(rank, world) of this process's shard of the data."""
+        return (0, 1) if self.shard is None else (self.shard.rank, self.shard.world)
+
     def _log_reconstructions(self, step: int, seed: int) -> None:
         """The plot set beside its reconstructions through the eval path,
-        logged as plots/{step}_recon.png."""
+        logged as plots/{step}_recon.png.  Every rank reconstructs (the VQ
+        lookup's histogram is a collective); rank 0 draws."""
         x = self.plot_images
         noise = torch.randn((x.shape[0], *_latent_shape(self.cfg, x)),
                             generator=eval_generator(seed, self.device), device=self.device)
         x_hat = self.eval_step(self.state.vae, x, noise)[0]
-        fig = plot_reconstructions(normalize_batch(x).cpu().numpy(), x_hat.cpu().numpy())
-        self.logger.log_figure(f"plots/{step}_recon.png", fig)
+        if is_main_process():
+            fig = plot_reconstructions(normalize_batch(x).cpu().numpy(), x_hat.cpu().numpy())
+            self.logger.log_figure(f"plots/{step}_recon.png", fig)
 
     def _evaluate(self, epoch: int, seed: int) -> None:
         """Dev losses over the whole dev set: the tail batch is padded and
@@ -424,21 +473,32 @@ class VAETrainer:
         batch counts its valid rows' codes and is weighted by their number.
         One sync at the end, and, with a FID, one per batch for its
         features: the valid reconstructions in [0, 1] as the fake set, the
-        valid dev images as the real set until the first FID latches it."""
+        valid dev images as the real set until the first FID latches it.
+        Under a mesh each rank evaluates its block of every batch (the noise
+        drawn at the batch's shape), and the sums and the FID statistics
+        are summed over the data group."""
         cfg = self.cfg.train
         gen = eval_generator(seed, self.device)
+        rows = None if self.shard is None else self.shard.rows(cfg.batch_size)
         sums, n_seen = torch.zeros(3, device=self.device), 0
         if self.fid_fn is not None:
             self.fid_fn.reset_fake()
-        for n_valid, (x,) in eval_batches(self.dev_set, cfg.batch_size, self.device):
-            noise = torch.randn((x.shape[0], *_latent_shape(self.cfg, x)), generator=gen,
-                                device=self.device)
+        for n_valid, (x,) in eval_batches(self.dev_set, cfg.batch_size, self.device,
+                                          *self._shard_of()):
+            noise = global_row_draw(lambda: torch.randn(
+                (cfg.batch_size, *_latent_shape(self.cfg, x)), generator=gen,
+                device=self.device), rows)
             x_hat, rl, pl, perplexity = self.eval_step(self.state.vae, x, noise, n_valid)
             sums += torch.stack([rl[:n_valid].sum(), pl[:n_valid].sum(), perplexity * n_valid])
             n_seen += n_valid
             if self.fid_fn is not None:
                 self.fid_fn.update_fake(((x_hat + 1.0) / 2.0)[:n_valid])
                 self.fid_fn.update_real_once(((normalize_batch(x) + 1.0) / 2.0)[:n_valid])
+        if self.shard is not None:
+            dist.all_reduce(sums, group=self.shard.group)
+            n_seen = len(self.dev_set)  # each dev sample counts once, on one rank
+            if self.fid_fn is not None:
+                self.fid_fn.all_reduce(self.shard.group, self.device)
         if n_seen:
             recon, percept, perplexity = (sums / n_seen).tolist()
             self.logger.log_metric("dev/recon_loss", recon, step=epoch)

@@ -424,3 +424,42 @@ def test_inception_features_on_the_card_match_the_cpu_in_fp32(card):
     card_f, cpu_f = feats
     assert card_f.shape == (2, 2048) and card_f.dtype == torch.float32
     assert float((card_f - cpu_f).abs().max() / cpu_f.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_pipeline_on_the_card_samples_with_its_own_models_sharded_or_not(card):
+    """A pipeline on "cuda" (no index) samples with its own models, never a
+    copy of them, unsharded and over ["cuda:0", "cuda:0"], so a change to
+    its weights in place (as the trainer's preview makes) reaches both;
+    the sharded grid stays the unsharded one's (fp32 on both sides; cuDNN's
+    TF32 convolutions at another row count: 1e-2 relative L2)."""
+    from image_diffusion_torch.core.config import ScheduleConfig, UNetArch, VAEArch
+    from image_diffusion_torch.models import build_unet, build_vae
+    from image_diffusion_torch.pipelines import DiffusionPipeline
+
+    vae_arch = VAEArch(in_channels=3, channels=(8, 16), z_dim=3, enc_num_res_blocks=1,
+                       dec_num_res_blocks=1, attn_resolutions=(), num_heads=2,
+                       init_resolution=16, num_groups=4)
+    unet_arch = UNetArch(z_dim=3, channels=(8, 16), mid_channels=(16, 16), time_dim=16,
+                         num_res_layers=1, num_heads=2, num_groups=4, num_classes=3)
+    g = torch.Generator().manual_seed(3)
+    pipe = DiffusionPipeline(vae_arch, build_vae(vae_arch, torch.float32, "cpu", g).state_dict(),
+                             unet_arch, build_unet(unet_arch, torch.float32, "cpu", g).state_dict(),
+                             ScheduleConfig(num_steps=8), "a,b,c", dtype=torch.float32,
+                             device="cuda")
+
+    def grids():
+        kw = dict(seed=0, sampler="dpm", num_inference_steps=3)
+        return pipe.sample([1.0, 2.0], **kw), pipe.sample([1.0, 2.0], devices=["cuda:0"] * 2, **kw)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    one, two = grids()
+    with torch.no_grad():
+        for p in pipe.unet.parameters():
+            p.mul_(0.5)
+    one_after, two_after = grids()
+    assert not pipe._replicas
+    assert rel(one_after, one) > 1e-2
+    assert rel(two, one) <= 1e-2 and rel(two_after, one_after) <= 1e-2

@@ -63,7 +63,7 @@ def bundle(tmp_path_factory):
 def engine_args(bundle, **kw):
     return argparse.Namespace(**{**dict(model=bundle, host="127.0.0.1", port=0, batch_size=2,
                                         linger_ms=1.0, sampler="ddpm", steps=4, eta=0.0,
-                                        device="cpu"), **kw})
+                                        device="cpu", data_parallel=None), **kw})
 
 
 @pytest.fixture(scope="module")
