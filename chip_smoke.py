@@ -14,7 +14,8 @@ Phases, one status line each; any failure exits non-zero:
   3. the forward kernel and the row sums it hands to the backward against
      their plain PyTorch version at the shapes the sampling grid gives it
      (batch 54, bf16), at the served batch's (16 rows: 8 conditional and
-     8 unconditional) and at a phase 14 grid shard's (28 rows), with times of the kernel, the plain version and one
+     8 unconditional), at a phase 14 grid shard's (28 rows) and at a
+     call of phase 15's generative FID (60 rows: 30 images), with times of the kernel, the plain version and one
      PyTorch library call, the card's bound and the time its
      special-function units need for the exponentials;
   3b. the backward kernels against their plain version at the same site
@@ -27,8 +28,10 @@ Phases, one status line each; any failure exits non-zero:
   3c. the flash kernel against its plain version at the VAE's attention
      site (one head, N 1024, D 384) at batches 27 (the grid's decode), 24
      (training's micro-batch at grad_accum 2, and a phase 14 rank's rows),
-     48 (training), 64 (prepare_dataset's batch), 8 (the server's decode)
-     and 14 (a phase 14 grid shard's decode), with the same
+     48 (training, and phase 15's encode and reconstruction batches), 64
+     (prepare_dataset's batch), 8 (the server's decode), 14 (a phase 14
+     grid shard's decode) and 30 (a decode of phase 15's generative FID),
+     with the same
      times (library: SDPA, its backend named),
      the gradient through `FlashAttention` against autograd of the plain
      version, and the device time of that gradient (the einsum path's
@@ -133,6 +136,17 @@ Phases, one status line each; any failure exits non-zero:
      each shard bit-equal to sampling its rows alone, with wall time and
      idle share beside phase 5's, and `sample_grid --data-parallel 1`.
      The ranks are this script under `--rank-worker`.
+  15. the end-to-end quality run in this process
+     (`image_diffusion_torch.tools.e2e_synthetic_run.run`), KL and then
+     VQ, at full width and reduced depth (`E2E_ARGS`: 1,200 images, 50
+     stage-1 and 50 UNet steps at batch 48, 270 dev images, 90 images for
+     the generative FID): seconds, the report's keys against the JAX
+     tool's, its numbers finite, the real data's grade, the bundle
+     against the trainers' last checkpoints bit for bit, and each
+     kernel's launches against the count of the path (14 + 14 packed a
+     UNet step, 14 packed a sampler step, 2 flash a stage-1 step and a
+     reconstruction batch, 1 flash an encode batch and a decode); the
+     conditional accuracy is printed, not held, at this depth.
 Then a JSON line of kernel records, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
@@ -157,6 +171,7 @@ B_TRAIN = 48              # the shipped config's batch_size
 B_ENCODE = 64             # prepare_dataset's default --batch-size
 B_RANK = B_TRAIN // 2     # a UNet or stage-1 step's rows on each of phase 14's two ranks
 B_SHARD = 2 * 14          # a UNet call on each of phase 14's two grid shards: 14 of 28 padded images
+B_FID = 2 * 30            # a UNet call of phase 15's generative FID: 30 images (3 classes x 10)
 TRAIN_STEPS = 25          # trainer steps in phase 6: 5 flushes of log_interval 5
 CONFIG = "configs/diff-kl-lin-32x32.yaml"
 VAE_CONFIG = "configs/vae-kl-32x32.yaml"
@@ -266,6 +281,18 @@ GRAD_NORMS = ("unet/grad", "vae/vae_grad", "gan/disc_grad")
 SHARD_GRID_REL = 0.5
 # csrc/<name>.cu of every kernel the paths run
 KERNEL_SOURCES = ["packed_attention", "packed_attention_bwd", "flash_attention"]
+# phase 15: the end-to-end quality tool at full width and reduced depth
+# (1,200 images; 2 epochs of 25 steps of 48 in each stage; 270 dev images;
+# 90 generated images for the generative FID in 3 calls of 30)
+E2E_ARGS = ["--n-per-class", "400", "--vae-steps", "50", "--unet-steps", "50",
+            "--fid-images", "90"]
+# the report's keys, the JAX tool's for each bottleneck
+# (tools/e2e_synthetic_run.py:213-451)
+E2E_KEYS = ["real_classifier_acc", "bottleneck", "vae_steps", "vae_train_s", "vae_final_recon",
+            "fid_weights", "recon_fid", "recon_fid_images", "unet_steps", "unet_train_s",
+            "cond_accuracy", "cond_accuracy_per_class", "generative_fid", "fid_images",
+            "fid_sampler", "fid_img_per_sec", "wall_s", "profile"]
+E2E_VQ_KEYS = ["vq_codebook_size", "vq_codebook_utilization", "vq_dev_perplexity", "vq_dev_images"]
 
 
 def log(msg: str) -> None:
@@ -498,7 +525,7 @@ def phase_flash_kernel(torch, F, attn, clock_hz):
     N, D = 1024, 384
     scale = 1.0 / D ** 0.5
     batches = []
-    for B in (B_GRID // 2, B_RANK, B_TRAIN, B_ENCODE, SERVE_BATCH, B_SHARD // 2):
+    for B in (B_GRID // 2, B_RANK, B_TRAIN, B_ENCODE, SERVE_BATCH, B_SHARD // 2, B_FID // 2):
         g = torch.Generator(device="cuda").manual_seed(3000 + B)
         q, k, v = (torch.randn(B, 1, N, D, generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
@@ -1505,28 +1532,6 @@ def phase_remat_preview(torch, np, attn, tmp, vae_ckpt, clis):
                 preview_launches=preview_launches, debug_nans=raised)
 
 
-def _random_inception_file(torch, np, path: str, seed: int = 0) -> None:
-    """Random FID Inception weights in torchvision's layout: He-scaled convs,
-    random BatchNorm affines and running statistics (tests/torch_oracles.py's
-    recipe), saved as a torch state dict."""
-    from image_diffusion_torch.models.inception import InceptionV3Features
-
-    rng = np.random.default_rng(seed)
-    model = InceptionV3Features()
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, torch.nn.Conv2d):
-                fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
-                w = rng.normal(0, np.sqrt(2.0 / fan_in), tuple(mod.weight.shape))
-                mod.weight.copy_(torch.from_numpy(w.astype(np.float32)))
-            elif isinstance(mod, torch.nn.BatchNorm2d):
-                n = mod.num_features
-                for t, (lo, hi) in ((mod.weight, (0.5, 1.5)), (mod.bias, (-0.1, 0.1)),
-                                    (mod.running_mean, (-0.2, 0.2)), (mod.running_var, (0.5, 1.5))):
-                    t.copy_(torch.from_numpy(rng.uniform(lo, hi, (n,)).astype(np.float32)))
-    torch.save(model.state_dict(), path)
-
-
 def phase_fid(torch, np, attn, tmp, vae_train, clis):
     """Phase 11: the FID Inception, per-epoch dev/FID, eval_fid."""
     import csv
@@ -1538,13 +1543,14 @@ def phase_fid(torch, np, attn, tmp, vae_train, clis):
     from image_diffusion_torch.models.fid import FID
     from image_diffusion_torch.pipelines import DiffusionPipeline
     from image_diffusion_torch.scripts import eval_fid, train_vae
+    from image_diffusion_torch.tools.e2e_synthetic_run import random_inception_file
     from image_diffusion_torch.training.data import ArrayDataset, eval_batches
     from image_diffusion_torch.training.vae_trainer import _latent_shape, normalize_batch
 
     # (a) random weights
     weights = os.path.join(tmp, "inception.pth")
     t0 = time.perf_counter()
-    _random_inception_file(torch, np, weights)
+    random_inception_file(weights, seed=0)
     model = inception.load_inception(weights)
     cpu_model = inception.load_inception(weights, "cpu")
     log(f"phase 11 inception: random torchvision-layout weights written and loaded in "
@@ -2532,6 +2538,95 @@ def _phase14_sharding(torch, attn, work, vae_state, unet_state, grid) -> dict:
                                                   launches=cli_launches))
 
 
+def phase_e2e(torch, np, attn, tmp) -> dict:
+    """Phase 15: the end-to-end quality tool in this process, KL and VQ, at
+    full width and reduced depth (`E2E_ARGS`): the report's keys, finite
+    numbers, the real data's grade, the bundle against the trainers' last
+    checkpoints, and every kernel's launches against the path's count."""
+    import math
+    import shutil
+
+    from image_diffusion_torch.compat.from_jax import unet_state_dict
+    from image_diffusion_torch.core import checkpoint as ckpt
+    from image_diffusion_torch.models.io import read_vae
+    from image_diffusion_torch.pipelines import DiffusionPipeline
+    from image_diffusion_torch.tools import e2e_synthetic_run as e2e
+
+    kernels = (attn.packed_attention, attn.packed_attention_bwd, attn.flash_attention)
+    runs = {}
+    for bottleneck in ("kl", "vq"):
+        out = os.path.join(tmp, f"e2e_{bottleneck}")
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = e2e.run(E2E_ARGS + ["--out", out, "--bottleneck", bottleneck])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = [k.launches for k in kernels]
+
+        # what the path launches: 14 + 14 packed a UNet step, 14 packed a
+        # sampler step (ddpm-1000 grading, dpm-20 FID calls); 2 flash a VAE
+        # roundtrip (training, the final recon of 8, each dev batch) and 1 an
+        # encode (latents, VQ's code counts) or a decode
+        fid_calls = math.ceil(report["fid_images"] / 30)
+        dev_batches = math.ceil(report["recon_fid_images"] / B_TRAIN)
+        latent_batches = 3 * int(E2E_ARGS[E2E_ARGS.index("--n-per-class") + 1]) // B_TRAIN
+        code_batches = report.get("vq_dev_images", 0) // B_TRAIN
+        want = [14 * report["unet_steps"] + 14 * 1000 + 14 * 20 * fid_calls,
+                14 * report["unet_steps"],
+                2 * report["vae_steps"] + 2 + 2 * dev_batches + code_batches + latent_batches
+                + 1 + fid_calls]
+
+        # the bundle against the trainers' last checkpoints, fp32 bit for bit
+        pipe = DiffusionPipeline.from_checkpoint(os.path.join(out, "e2e_bundle.ckpt"))
+        vae_state = read_vae(e2e.latest_ckpt(out, "e2e_vae", "vae"))[1]
+        trees, _ = ckpt.load_checkpoint(e2e.latest_ckpt(out, "e2e_unet", "unet"))
+        unet = unet_state_dict(trees["unet"])
+        bundle_equal = (set(pipe.unet_state) == set(unet) and set(pipe.vae_state) == set(vae_state)
+                        and all(torch.equal(pipe.unet_state[k], v) for k, v in unet.items())
+                        and all(torch.equal(pipe.vae_state[k], v) for k, v in vae_state.items()))
+        del pipe, vae_state, trees, unet
+        keys = E2E_KEYS + (E2E_VQ_KEYS if bottleneck == "vq" else [])
+        numbers = [v for v in report.values() if isinstance(v, (int, float))]
+        numbers += list(report["cond_accuracy_per_class"].values())
+        finite = bool(np.isfinite(numbers).all())
+        disk_gb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out)
+                      for f in fs) / 1e9
+        runs[bottleneck] = dict(seconds=secs, report=report, launches=launches,
+                                launches_expected=want, bundle_equal=bundle_equal,
+                                disk_gb=disk_gb)
+        log(f"phase 15 e2e_synthetic_run --bottleneck {bottleneck} {' '.join(E2E_ARGS)}: "
+            f"{secs:.1f} s in this process (VAE {report['vae_steps']} steps in "
+            f"{report['vae_train_s']} s, UNet {report['unet_steps']} steps in "
+            f"{report['unet_train_s']} s, generative FID at {report['fid_img_per_sec']} img/s); "
+            f"real data graded {report['real_classifier_acc']}; vae_final_recon "
+            f"{report['vae_final_recon']:.5f}; recon FID {report['recon_fid']} over "
+            f"{report['recon_fid_images']} dev images; generative FID {report['generative_fid']} "
+            f"over {report['fid_images']} ({report['fid_sampler']})"
+            + (f"; codebook utilization {report['vq_codebook_utilization']}, dev perplexity "
+               f"{report['vq_dev_perplexity']} over {report['vq_dev_images']} images"
+               if bottleneck == "vq" else "")
+            + f"; cond_accuracy {report['cond_accuracy']:.3f} "
+            f"{report['cond_accuracy_per_class']} (not held at this depth); keys are the JAX "
+            f"tool's: {set(report) == set(keys)}; finite: {finite}; the bundle equals the last "
+            f"checkpoints bit for bit: {bundle_equal}; {disk_gb:.2f} GB written")
+        log(f"phase 15 {bottleneck} launches: packed forward {launches[0]} (expected {want[0]}: "
+            f"14 a UNet step, 14 a sampler step), backward {launches[1]} (expected {want[1]}: 14 "
+            f"a UNet step), flash {launches[2]} (expected {want[2]}: 2 a stage-1 step and a "
+            f"reconstruction batch, 1 an encode batch and a decode)")
+        if not (set(report) == set(keys) and finite and report["real_classifier_acc"] >= 0.95
+                and bundle_equal):
+            raise AssertionError(f"phase 15 {bottleneck}: the report's keys, a non-finite number, "
+                                 "the real data's grade or the bundle is wrong")
+        if launches != want or min(launches) == 0:
+            raise AssertionError(f"phase 15 {bottleneck}: launches {launches}, expected {want}")
+        shutil.rmtree(out)
+        torch.cuda.empty_cache()
+    log(f"phase 15 in {sum(r['seconds'] for r in runs.values()):.1f} s")
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -2602,6 +2697,7 @@ def main() -> int:
     sites = phase_kernels(torch, F, attn, clock_hz, B_GRID)
     serve_sites = phase_kernels(torch, F, attn, clock_hz, 2 * SERVE_BATCH)
     shard_sites = phase_kernels(torch, F, attn, clock_hz, B_SHARD)
+    fid_sites = phase_kernels(torch, F, attn, clock_hz, B_FID)
     bwd_sites = phase_bwd_kernels(torch, F, attn, clock_hz, B_TRAIN)
     rank_bwd_sites = phase_bwd_kernels(torch, F, attn, clock_hz, B_RANK)
     flash_batches = phase_flash_kernel(torch, F, attn, clock_hz)
@@ -2752,6 +2848,10 @@ def main() -> int:
 
         # phase 14: data parallelism, FSDP and sharded sampling on the one card
         par = phase_parallel(torch, np, attn, tmp, vae_state, unet_state, grid)
+        torch.cuda.empty_cache()
+
+        # phase 15: the end-to-end quality run
+        e2e = phase_e2e(torch, np, attn, tmp)
 
     per_forward = {k: 2 * sum(s[k] for s in sites)
                    for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
@@ -2790,20 +2890,26 @@ def main() -> int:
                              "phase 14 dpm-20 grid over 2 shards":
                                  par["sharded"]["dpm"]["launches"][0],
                              "phase 14 sample_grid --data-parallel 1 dpm":
-                                 par["sample_grid_dp1"]["launches"]},
-        "max_abs_err": max(s["max_abs_err"] for s in sites + serve_sites + shard_sites),
+                                 par["sample_grid_dp1"]["launches"],
+                             **{f"phase 15 e2e_synthetic_run {k}": r["launches"][0]
+                                for k, r in e2e.items()}},
+        "max_abs_err": max(s["max_abs_err"] for s in sites + serve_sites + shard_sites
+                           + fid_sites),
         **per_forward,
         "bound_by": "operations" if bound_ops > per_forward["bound_ms"] / 2 else "bytes",
         "per": "one UNet forward at batch 54: 14 sites, two of each shape in sites; "
                "serve_per_forward: one served UNet call at 16 rows (serve_sites); "
-               "shard_per_forward: one UNet call of a phase 14 grid shard at 28 rows (shard_sites)",
+               "shard_per_forward: one UNet call of a phase 14 grid shard at 28 rows (shard_sites); "
+               "fid_per_forward: one UNet call of phase 15's generative FID at 60 rows (fid_sites)",
         "sites": sites,
         "serve_sites": serve_sites,
         "shard_sites": shard_sites,
+        "fid_sites": fid_sites,
         **{f"{name}_per_forward": {k: 2 * sum(s[k] for s in rows)
                                    for k in ("ms", "device_ms", "plain_ms", "library_ms",
                                              "library_device_ms", "bound_ms", "exp_ms")}
-           for name, rows in (("serve", serve_sites), ("shard", shard_sites))},
+           for name, rows in (("serve", serve_sites), ("shard", shard_sites),
+                              ("fid", fid_sites))},
     }, {
         "name": "packed_attention_bwd",
         "route": "cuda",
@@ -2819,7 +2925,9 @@ def main() -> int:
                              "phase 14 train_diffusion under torchrun, world 1":
                                  par["nccl1"]["cli_launches"][1],
                              **{f"phase 14 {k} step, per rank": v["launches"][1]
-                                for k, v in par["gloo2"].items() if k.startswith("unet")}},
+                                for k, v in par["gloo2"].items() if k.startswith("unet")},
+                             **{f"phase 15 e2e_synthetic_run {k}": r["launches"][1]
+                                for k, r in e2e.items()}},
         "max_abs_err": max(s["max_abs_err"] for s in bwd_sites + rank_bwd_sites),
         **per_backward,
         "bound_by": "operations" if bwd_bound_ops > per_backward["bound_ms"] / 2 else "bytes",
@@ -2860,7 +2968,9 @@ def main() -> int:
                              "phase 14 ddpm-1000 grid over 2 shards":
                                  par["sharded"]["ddpm"]["launches"][1],
                              "phase 14 dpm-20 grid over 2 shards":
-                                 par["sharded"]["dpm"]["launches"][1]},
+                                 par["sharded"]["dpm"]["launches"][1],
+                             **{f"phase 15 e2e_synthetic_run {k}": r["launches"][2]
+                                for k, r in e2e.items()}},
         "max_abs_err": max(b["max_abs_err"] for b in flash_batches),
         **{k: next(b for b in flash_batches if b["B"] == B_TRAIN)[k]
            for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
@@ -2897,7 +3007,8 @@ def main() -> int:
         "remat_cli_step_ms": rp["cli_step_ms"], "preview_s": rp["preview_s"],
         "debug_nans": rp["debug_nans"], **{k: v for k, v in fid.items() if "launches" not in k},
         "serve": {k: v for k, v in served.items() if "launches" not in k}, **clip,
-        "parallel": par}
+        "parallel": par, "e2e": {k: {n: v for n, v in r.items() if n != "launches"}
+                                 for k, r in e2e.items()}}
     log(json.dumps(record))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -410,9 +410,10 @@ class DiffusionTrainer:
         opt = self.state.optimizer
         if self.state.ema is not None:
             # without a saved EMA, seed it from the restored parameters
+            # (whole: `copy_full_` takes this rank's shard of them)
             src = unet_state_dict(trees["unet_ema"]) if "unet_ema" in trees else None
             for e, name, p in zip(self.state.ema, self.names, opt.params):
-                copy_full_(e, src[name] if src is not None else local(p))
+                copy_full_(e, src[name] if src is not None else full(p))
         _, mu, nu = adam_moments(trees["optim"])
         mu, nu = unet_state_dict(mu), unet_state_dict(nu)
         opt.load(int(trees["step"]["step"]), [mu[n] for n in self.names],

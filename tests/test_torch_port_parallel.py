@@ -630,6 +630,20 @@ def test_fsdp_checkpoint_equals_one_process_and_loads_in_jax(fsdp_run):
     assert [r.split(",")[:2] for r in rows if ",unet/loss," in r] == [["0", "unet/loss"]]
 
 
+def test_fsdp_resume_seeds_the_ema_from_a_checkpoint_without_one(fsdp_run):
+    """An FSDP epoch with `ema_decay: null` writes a checkpoint without
+    `unet_ema`; a trainer with `ema_decay: 0.9` resumes from it under FSDP
+    and seeds its sharded EMA from the restored parameters: max|EMA -
+    parameters| is 0 on every rank (the JAX trainer copies the restored
+    parameters under any sharding)."""
+    outs, _, work = fsdp_run
+    trees, _ = tckpt.load_checkpoint(str(work / "no_ema" / "unet-epoch-00.ckpt"))
+    assert "unet_ema" not in trees
+    for out in outs:
+        assert float(out["ema_seed_max_abs_diff"]) == 0.0
+        assert int(out["ema_seed_sharded"]) > 0
+
+
 # --------------------------------------------------------------- the CLIs
 
 

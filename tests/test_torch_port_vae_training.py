@@ -433,6 +433,47 @@ def test_accumulated_train_step_matches_one_shot(bottleneck):
     assert two.step == one.step == 1 and two.disc_opt.count == 0
 
 
+@pytest.mark.parametrize("bottleneck", ["kl", "vq"])
+def test_stage1_trajectory_matches_jax_over_steps(bottleneck):
+    """30 fp32 steps of the end-to-end run's stage 1 (lr 1e-4 after a
+    warmup, here of 10 steps, clip 1, no discriminator, no LPIPS; prior
+    weight 5e-6 for KL, 1 for VQ) from one state, on the same batches and
+    draws: every step's losses at rtol 2e-4, and after the last step the
+    parameter updates at relative L2 1e-3 (the one-step bar; read 1.3e-4
+    at 30 and 60 steps) and the VQ codebook at relative L2 1e-5 (read
+    3e-7).  The two trainers keep together over many steps, not just one."""
+    vae, disc, _, vae_vars, disc_vars = models(bottleneck)
+    over = dict(learning_rate=1e-4, warmup_steps=10, disc_start=10**9,
+                prior_weight=1.0 if bottleneck == "vq" else 5e-6)
+    jc, tc = configs("/nonexistent", bottleneck, **over)
+    vae_tx = make_optimizer(jc.train.learning_rate, jc.train.warmup_steps, jc.train.clip_grad)
+    disc_tx = make_optimizer(jc.train.learning_rate, 0, jc.train.clip_grad)
+    jstate = JState(step=jnp.zeros((), jnp.int32), vae_params=vae_vars["params"],
+                    vae_opt=vae_tx.init(vae_vars["params"]), codebook=vae_vars.get("codebook"),
+                    disc_params=disc_vars["params"], disc_stats=disc_vars["batch_stats"],
+                    disc_opt=disc_tx.init(disc_vars["params"]))
+    jstep = jmake_step(vae, disc, jc, None, vae_tx, disc_tx)
+    state = port_state(bottleneck)
+    state.vae_opt = Optimizer(state.vae.parameters(), 1e-4, 10, 1.0)
+    step = make_vae_train_step(tc, None)
+    rng = np.random.default_rng(0)
+    for i in range(30):
+        x = rng.integers(0, 256, (4, 16, 16, 3)).astype(np.uint8)
+        jstate, ref = jstep(jstate, x, RNG, disc_active=False)
+        got = step(state, torch.from_numpy(x), jax_draws(i), False)
+        for k in ("vae/recon_loss", "vae/prior_loss"):
+            assert float(got[k]) == pytest.approx(float(ref[k]), rel=2e-4, abs=1e-7), (i, k)
+    names = [n for n, _ in state.vae.named_parameters()]
+    mine = leaves(vae_flax_variables(dict(zip(names, state.vae_opt.params)))["params"])
+    theirs, start = leaves(jstate.vae_params), leaves(vae_vars["params"])
+    got = np.concatenate([(a - b).ravel() for a, b in zip(mine, start)])
+    ref = np.concatenate([(a - b).ravel() for a, b in zip(theirs, start)])
+    assert rel_l2(got, ref) < 1e-3
+    if bottleneck == "vq":
+        for a, b in zip(leaves(codebook_tree(state.vae)), leaves(jstate.codebook)):
+            assert rel_l2(a, b) < 1e-5
+
+
 # ------------------------------------------------------------- the trainer
 
 

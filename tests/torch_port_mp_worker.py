@@ -8,10 +8,12 @@ from DIR/inputs.npz, and each writes DIR/CASE-rank{RANK}.npz, which the
 parent test compares with the JAX package and the port's one-process run.
 CASE "dp" (2 ranks): diffusion and VAE train steps, BatchNorm, codebook,
 data and writes; "fsdp" (4 ranks): the FSDP step and checkpoints against
-replicated DP."""
+replicated DP, and a resume that seeds the EMA from a checkpoint
+without one."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 
@@ -224,6 +226,19 @@ def fsdp_case(inputs, rank: int, world: int, out_dir: str) -> dict:
     again = trainer(run_name="again", checkpoint=path)
     again.save(0)
     out["resumed_epoch"] = np.array(again.curr_epoch)
+
+    # an epoch without an EMA writes a checkpoint with none; a trainer with
+    # one resumes from it and seeds its (sharded) EMA from the parameters
+    no_ema = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, ema_decay=None))
+    DiffusionTrainer(no_ema, data, BasicLogger(out_dir, "n", True, 1), MetricHolder(1),
+                     run_name="no_ema", device="cpu", mesh=mesh, param_sharding="fsdp").train()
+    dist.barrier()
+    seeded = trainer(run_name="seeded",
+                     checkpoint=os.path.join(out_dir, "no_ema", "unet-epoch-00.ckpt"))
+    out["ema_seed_max_abs_diff"] = np.array(max(
+        float((full(e) - full(p)).abs().max())
+        for e, p in zip(seeded.state.ema, seeded.state.optimizer.params)))
+    out["ema_seed_sharded"] = np.array(sum(isinstance(e, DTensor) for e in seeded.state.ema))
     return out
 
 
