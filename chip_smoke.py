@@ -54,7 +54,9 @@ Phases, one status line each; any failure exits non-zero:
      from its checkpoint; a torch.profiler trace of 3 train steps;
   7. stage-1 training on the card: full-width VAE + discriminator + LPIPS
      gradients at batch 2 through the flash kernel against the CPU's plain
-     version; 25 steps of `configs/vae-kl-32x32.yaml` (batch 48 of
+     version; 3 steps of the end-to-end run's KL stage 1 at full width,
+     batch 2, fp32 with TF32 off, card against CPU from one state (losses,
+     parameter updates); 25 steps of `configs/vae-kl-32x32.yaml` (batch 48 of
      128x128x3 uint8, bf16 compute on fp32 parameters, random LPIPS
      weights from a file; only paths, epochs: 1, log_interval: 5 and
      disc_start: 10 overridden) through `image_diffusion_torch.scripts
@@ -73,7 +75,10 @@ Phases, one status line each; any failure exits non-zero:
      arguments; the figure when matplotlib is installed;
   9. stage-1 VQ training on the card (`configs/vae-vq-32x32.yaml`, EMA
      codebook 1024x3): (a) full-width gradients at batch 2 against the
-     CPU, with the share of tokens whose code differs between them; (b)
+     CPU, with the share of tokens whose code differs between them; (f)
+     3 steps of the end-to-end run's VQ stage 1 as phase 7's KL ones, the
+     codebook held too and the share of tokens whose code differs printed
+     per step; (b)
      the codebook lookup on the card's fp32 encoder output for batch 48
      against float64 distances; (c) one EMA update at batch 48 against its
      float64 statement, and the codebook's device time; (d) 25 steps
@@ -216,6 +221,15 @@ SITE_GRAD_REL_L2 = 2.5e-1
 # and ema_w are fp32 sums over up to 49,152 tokens a code, which index_add_
 # on the card adds in no fixed order
 EMA_REL = 1e-4
+# phases 7 and 9: 3 steps of the end-to-end run's stage 1 at full width,
+# batch 2, fp32 with TF32 off, card vs CPU from one state: each step's
+# losses (relative), the parameter updates p - p0 over all tensors
+# (relative L2: the CPU tests' fp32 bar against JAX, Adam turning fp noise
+# in near-zero gradients into lr-sized steps) and the codebook (EMA_REL,
+# on the card's codes)
+STEPS_N, STEPS_BATCH = 3, 2
+STEPS_LOSS_REL = 1e-4
+STEPS_UPDATE_REL_L2 = 1e-3
 # phase 8: a few rows of prepare_dataset's latents (bf16 on the card, stored
 # as fp16) against the same rows encoded on the CPU at fp32: relative L2,
 # of the same kind as UNET_REL_L2 through the encoder's ~40 layers
@@ -871,6 +885,80 @@ def _stage1_grad_errors(torch, card, cpu):
     return errs, held, text
 
 
+def _stage1_steps(torch, bottleneck):
+    """STEPS_N steps of the end-to-end run's stage 1 (`stage1_config`: lr
+    1e-4 after 100 warmup steps, clip 1, no discriminator or LPIPS) at
+    full width and fp32 with TF32 off, batch STEPS_BATCH of the run's own
+    images, on the card and on the CPU from one state and the same flips
+    and noise; each step's losses, parameter updates and (VQ) codebook
+    held, the share of tokens whose code differs printed.  When codes
+    differ, the codebook is held against the CPU run again on the card's
+    codes.  At fp32 the mid-block attention takes the plain path on both."""
+    from image_diffusion_torch.core.config import VAEArch
+    from image_diffusion_torch.models import build_vae
+    from image_diffusion_torch.tools.e2e_synthetic_run import make_dataset, stage1_config
+    from image_diffusion_torch.training.diffusion_trainer import Optimizer
+    from image_diffusion_torch.training.vae_trainer import (VAEDraws, VAETrainState, draw,
+                                                            make_vae_train_step)
+
+    phase = "phase 7" if bottleneck == "kl" else "phase 9 (f)"
+    cfg = stage1_config(VAEArch(), bottleneck, STEPS_BATCH, 1, "unused", precision="fp32")
+    tc, B = cfg.train, STEPS_BATCH
+    imgs = torch.from_numpy(make_dataset(B)[0])  # 3 B images: one batch a step
+    g = torch.Generator().manual_seed(11)
+    state0 = build_vae(cfg.arch, torch.float32, "cpu", g).state_dict()
+    draws = [draw(g, B, (32, 32, cfg.arch.z_dim)) for _ in range(STEPS_N)]
+    p0 = torch.cat([v.flatten() for k, v in state0.items() if not k.startswith("codebook.")])
+    step = make_vae_train_step(cfg)
+
+    def run(dev, codes=None):
+        vae = build_vae(cfg.arch, torch.float32, dev, param_dtype=torch.float32)  # TF32 off
+        vae.load_state_dict(state0)
+        st = VAETrainState(vae.train(), None, Optimizer(vae.parameters(), tc.learning_rate,
+                                                        tc.warmup_steps, tc.clip_grad), None)
+        rows, t0 = [], time.perf_counter()
+        with _Lookup(codes) as lookup:
+            for i in range(STEPS_N):
+                m = step(st, imgs[i * B:(i + 1) * B].to(dev),
+                         VAEDraws(*(t.to(dev) for t in draws[i])), False)
+                sd = vae.state_dict()
+                rows.append(dict(
+                    losses=[float(m["vae/recon_loss"]), float(m["vae/prior_loss"])],
+                    update=torch.cat([sd[k].float().cpu().flatten() for k in state0
+                                      if not k.startswith("codebook.")]) - p0,
+                    codebook=[sd[k].double().cpu() for k in state0 if k.startswith("codebook.")]))
+        secs = time.perf_counter() - t0
+        return rows, [c for c, _ in lookup.taken], secs
+
+    card, card_codes, card_s = run("cuda")
+    cpu, cpu_codes, cpu_s = run("cpu")
+    flips = [float((a != b).float().mean()) for a, b in zip(card_codes, cpu_codes)]
+    if any(flips):
+        cpu, _, _ = run("cpu", torch.cat(card_codes))
+    loss_rel = [max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(c["losses"], r["losses"]))
+                for c, r in zip(card, cpu)]
+    update_rel = [float((c["update"] - r["update"]).norm() / r["update"].norm())
+                  for c, r in zip(card, cpu)]
+    cb_rel = [max((float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(c["codebook"], r["codebook"])), default=0.0)
+              for c, r in zip(card, cpu)]
+    log(f"{phase} steps: {STEPS_N} steps of the end-to-end run's {bottleneck.upper()} stage 1, "
+        f"full width, batch {B}, fp32 with TF32 off, card vs CPU from one state: losses "
+        f"{', '.join(f'{v:.3e}' for v in loss_rel)} (tolerance {STEPS_LOSS_REL}); parameter "
+        f"updates rel L2 {', '.join(f'{v:.3e}' for v in update_rel)} (tolerance "
+        f"{STEPS_UPDATE_REL_L2})"
+        + (f"; codebook max|diff|/max {', '.join(f'{v:.3e}' for v in cb_rel)} (tolerance "
+           f"{EMA_REL}{', on the card codes' if any(flips) else ''}); share of tokens whose code "
+           f"differs {', '.join(f'{v:.4f}' for v in flips)} of {card_codes[0].numel()}"
+           if bottleneck == "vq" else "")
+        + f"; card {card_s:.1f} s, CPU {cpu_s:.1f} s")
+    if not (max(loss_rel) <= STEPS_LOSS_REL and max(update_rel) <= STEPS_UPDATE_REL_L2
+            and max(cb_rel) <= EMA_REL):
+        raise AssertionError(f"{phase}: the full-width stage-1 steps on the card part from the "
+                             f"CPU's")
+    return dict(loss_rel=loss_rel, update_rel=update_rel, codebook_rel=cb_rel, code_flips=flips)
+
+
 def phase_vae_train(torch, np, attn, tmp):
     """Phase 7: stage-1 VAE-GAN training on the card, its files in `tmp`
     (phases 8 and 9 read its images, LPIPS file and checkpoint)."""
@@ -904,6 +992,7 @@ def phase_vae_train(torch, np, attn, tmp):
     if launches[0] != 2 or not held:
         raise AssertionError("full-width stage-1 gradients on the card disagree with the CPU")
     del grads
+    steps = _stage1_steps(torch, "kl")
 
     # 2. the trainer through its entry point, 25 steps of the shipped config
     rng = np.random.default_rng(0)
@@ -912,7 +1001,7 @@ def phase_vae_train(torch, np, attn, tmp):
     np.save(os.path.join(tmp, "dev.npy"), rng.integers(0, 256, (n_dev, 128, 128, 3), dtype=np.uint8))
     run = _stage1_cli_run(torch, np, attn, tmp, "phase 7", VAE_CONFIG, "smoke", lpips_path)
     del run["trainer"], run["x"]
-    return dict(run, grad_rel_l2=errs, images=os.path.join(tmp, "train.npy"))
+    return dict(run, grad_rel_l2=errs, steps=steps, images=os.path.join(tmp, "train.npy"))
 
 
 def _stage1_config(tmp, config_path, run):
@@ -1109,6 +1198,9 @@ def phase_vq_train(torch, np, attn, tmp):
     errs = compare("codebook spread over the tokens", (spread, states[1]), hold=True)
     del vae_cpu
 
+    # (f) 3 steps of the end-to-end run's VQ stage 1, card vs CPU
+    card_steps = _stage1_steps(torch, "vq")
+
     # (d) 25 steps of the VQ config through the CLI, resume, profile
     run = _stage1_cli_run(torch, np, attn, tmp, "phase 9", VQ_CONFIG, "vq", lpips_path)
     trainer, x = run.pop("trainer"), run.pop("x")
@@ -1224,7 +1316,7 @@ def phase_vq_train(torch, np, attn, tmp):
     return dict(run, grad_rel_l2=errs, lookup_ms=lookup_ms, codebook_ms=codebook_ms,
                 ema_rel_err=ema_err, accum=accum, accum_grad_rel_l2=grad_err,
                 accum_codebook_rel_err=cb_err, accum_code_flips=flips,
-                accum_codebook_rel_err_own_codes=cb_err_flips)
+                accum_codebook_rel_err_own_codes=cb_err_flips, steps=card_steps)
 
 
 def phase_clis(torch, np, attn, vae_ckpt: str, images_path: str, tmp: str):
@@ -2988,6 +3080,7 @@ def main() -> int:
         "vae_train_step_profiled_ms": vae_train["wall_ms"], "vae_train_flash_launches": vae_train["launches"],
         "vae_train_flash_device_ms": vae_train["flash_device_ms"],
         "vae_train_grad_rel_l2": vae_train["grad_rel_l2"], "host_packages": host_packages,
+        "stage1_steps_kl": vae_train["steps"], "stage1_steps_vq": vq["steps"],
         "prepare_dataset_s": clis["prep_s"], "prepare_dataset_encode_s": clis["encode_s"],
         "prepare_dataset_images": clis["images"], "prepare_dataset_rel_l2": clis["encode_rel_l2"],
         "sample_grid_ddpm_s": clis["grids"]["ddpm"]["seconds"],
