@@ -56,14 +56,15 @@ Phases, one status line each; any failure exits non-zero:
      gradients at batch 2 through the flash kernel against the CPU's plain
      version; 3 steps of the end-to-end run's KL stage 1 at full width,
      batch 2, fp32 with TF32 off, card against CPU from one state (losses,
-     parameter updates); 25 steps of `configs/vae-kl-32x32.yaml` (batch 48 of
-     128x128x3 uint8, bf16 compute on fp32 parameters, random LPIPS
-     weights from a file; only paths, epochs: 1, log_interval: 5 and
-     disc_start: 10 overridden) through `image_diffusion_torch.scripts
-     .train_vae` on synthetic images with a dev set whose last batch is
-     padded, with losses and imgs/s at each flush, ms/step, and flash
-     launches per step; a resume from its checkpoint; a torch.profiler
-     trace of 3 train steps;
+     parameter updates), and the same steps on the card in bf16 (2 flash
+     launches a step) against the CPU's fp32; 25 steps of
+     `configs/vae-kl-32x32.yaml` (batch 48 of 128x128x3 uint8, bf16
+     compute on fp32 parameters, random LPIPS weights from a file; only
+     paths, epochs: 1, log_interval: 5 and disc_start: 10 overridden)
+     through `image_diffusion_torch.scripts.train_vae` on synthetic
+     images with a dev set whose last batch is padded, with losses and
+     imgs/s at each flush, ms/step, and flash launches per step; a resume
+     from its checkpoint; a torch.profiler trace of 3 train steps;
   8. the two stages joined through the CLIs' `main`s: `prepare_dataset
      diffusion --labels-mode random` on phase 7's images and checkpoint
      (batches of 64: images/s, one flash launch a batch, rows against the
@@ -230,6 +231,17 @@ EMA_REL = 1e-4
 STEPS_N, STEPS_BATCH = 3, 2
 STEPS_LOSS_REL = 1e-4
 STEPS_UPDATE_REL_L2 = 1e-3
+# the same steps on the card in bf16 (the mid-block attention through the
+# flash kernel, 2 launches a step) against the CPU's fp32 run: bf16 rounding
+# of the recon loss (the prior loss is printed: VQ's moves with the tokens
+# that take another code), of the parameter updates over all tensors and
+# over the attention sites' to_q/to_k/to_v/out_proj alone (two unrelated
+# updates read ~1.4), and of the codebook (max|diff| / max); bars at about
+# 3x the readings on an H100 (recon loss 2.1e-3, updates 2.1e-1 and 1.9e-1
+# at the sites, codebook 6.9e-2, all at the first VQ steps)
+STEPS_BF16_LOSS_REL = 6e-3
+STEPS_BF16_UPDATE_REL_L2 = 6e-1
+STEPS_BF16_CODEBOOK_REL = 2e-1
 # phase 8: a few rows of prepare_dataset's latents (bf16 on the card, stored
 # as fp16) against the same rows encoded on the CPU at fp32: relative L2,
 # of the same kind as UNET_REL_L2 through the encoder's ~40 layers
@@ -893,7 +905,11 @@ def _stage1_steps(torch, bottleneck):
     and noise; each step's losses, parameter updates and (VQ) codebook
     held, the share of tokens whose code differs printed.  When codes
     differ, the codebook is held against the CPU run again on the card's
-    codes.  At fp32 the mid-block attention takes the plain path on both."""
+    codes.  At fp32 the mid-block attention takes the plain path on both,
+    so the same steps run on the card once more in bf16, where it takes
+    the flash kernel, and are held against the CPU's fp32 run at the
+    STEPS_BF16 bars."""
+    import image_diffusion_torch.ops.attention as attn
     from image_diffusion_torch.core.config import VAEArch
     from image_diffusion_torch.models import build_vae
     from image_diffusion_torch.tools.e2e_synthetic_run import make_dataset, stage1_config
@@ -911,8 +927,8 @@ def _stage1_steps(torch, bottleneck):
     p0 = torch.cat([v.flatten() for k, v in state0.items() if not k.startswith("codebook.")])
     step = make_vae_train_step(cfg)
 
-    def run(dev, codes=None):
-        vae = build_vae(cfg.arch, torch.float32, dev, param_dtype=torch.float32)  # TF32 off
+    def run(dev, codes=None, dtype=torch.float32):
+        vae = build_vae(cfg.arch, dtype, dev, param_dtype=torch.float32)  # fp32: TF32 off
         vae.load_state_dict(state0)
         st = VAETrainState(vae.train(), None, Optimizer(vae.parameters(), tc.learning_rate,
                                                         tc.warmup_steps, tc.clip_grad), None)
@@ -933,15 +949,33 @@ def _stage1_steps(torch, bottleneck):
     card, card_codes, card_s = run("cuda")
     cpu, cpu_codes, cpu_s = run("cpu")
     flips = [float((a != b).float().mean()) for a, b in zip(card_codes, cpu_codes)]
+    cpu_own = cpu
     if any(flips):
         cpu, _, _ = run("cpu", torch.cat(card_codes))
-    loss_rel = [max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(c["losses"], r["losses"]))
-                for c, r in zip(card, cpu)]
-    update_rel = [float((c["update"] - r["update"]).norm() / r["update"].norm())
-                  for c, r in zip(card, cpu)]
-    cb_rel = [max((float((a - b).abs().max() / b.abs().max())
-                   for a, b in zip(c["codebook"], r["codebook"])), default=0.0)
-              for c, r in zip(card, cpu)]
+    before = attn.flash_attention.launches
+    bf16, bf16_codes, bf16_s = run("cuda", dtype=torch.bfloat16)
+    bf16_launches = attn.flash_attention.launches - before
+    sites = torch.cat([torch.full((v.numel(),), k.rsplit(".", 2)[-2] in ("to_q", "to_k", "to_v",
+                                                                         "out_proj"))
+                       for k, v in state0.items() if not k.startswith("codebook.")])
+
+    def errors(got, ref, which=slice(None)):
+        loss_rel = [max(abs(a - b) / max(abs(b), 1e-12)
+                        for a, b in zip(c["losses"][which], r["losses"][which]))
+                    for c, r in zip(got, ref)]
+        update_rel = [float((c["update"] - r["update"]).norm() / r["update"].norm())
+                      for c, r in zip(got, ref)]
+        site_rel = [float((c["update"] - r["update"])[sites].norm() / r["update"][sites].norm())
+                    for c, r in zip(got, ref)]
+        cb_rel = [max((float((a - b).abs().max() / b.abs().max())
+                       for a, b in zip(c["codebook"], r["codebook"])), default=0.0)
+                  for c, r in zip(got, ref)]
+        return loss_rel, update_rel, site_rel, cb_rel
+
+    loss_rel, update_rel, _, cb_rel = errors(card, cpu)
+    b_loss, b_update, b_site, b_cb = errors(bf16, cpu_own, slice(0, 1))
+    b_prior = errors(bf16, cpu_own, slice(1, 2))[0]
+    b_flips = [float((a != b).float().mean()) for a, b in zip(bf16_codes, cpu_codes)]
     log(f"{phase} steps: {STEPS_N} steps of the end-to-end run's {bottleneck.upper()} stage 1, "
         f"full width, batch {B}, fp32 with TF32 off, card vs CPU from one state: losses "
         f"{', '.join(f'{v:.3e}' for v in loss_rel)} (tolerance {STEPS_LOSS_REL}); parameter "
@@ -952,11 +986,29 @@ def _stage1_steps(torch, bottleneck):
            f"differs {', '.join(f'{v:.4f}' for v in flips)} of {card_codes[0].numel()}"
            if bottleneck == "vq" else "")
         + f"; card {card_s:.1f} s, CPU {cpu_s:.1f} s")
+    log(f"{phase} steps in bf16: the same steps on the card in bf16 ({bf16_launches} flash "
+        f"launches) vs the CPU's fp32: recon loss {', '.join(f'{v:.3e}' for v in b_loss)} "
+        f"(tolerance {STEPS_BF16_LOSS_REL}), prior loss, not held, "
+        f"{', '.join(f'{v:.3e}' for v in b_prior)}; parameter updates rel L2 "
+        f"{', '.join(f'{v:.3e}' for v in b_update)}, of the attention sites "
+        f"{', '.join(f'{v:.3e}' for v in b_site)} (tolerance {STEPS_BF16_UPDATE_REL_L2})"
+        + (f"; codebook max|diff|/max {', '.join(f'{v:.3e}' for v in b_cb)} (tolerance "
+           f"{STEPS_BF16_CODEBOOK_REL}); share of tokens whose code differs "
+           f"{', '.join(f'{v:.4f}' for v in b_flips)}" if bottleneck == "vq" else "")
+        + f"; card {bf16_s:.1f} s")
     if not (max(loss_rel) <= STEPS_LOSS_REL and max(update_rel) <= STEPS_UPDATE_REL_L2
             and max(cb_rel) <= EMA_REL):
         raise AssertionError(f"{phase}: the full-width stage-1 steps on the card part from the "
                              f"CPU's")
-    return dict(loss_rel=loss_rel, update_rel=update_rel, codebook_rel=cb_rel, code_flips=flips)
+    if not (bf16_launches == 2 * STEPS_N and max(b_loss) <= STEPS_BF16_LOSS_REL
+            and max(b_update + b_site) <= STEPS_BF16_UPDATE_REL_L2
+            and max(b_cb) <= STEPS_BF16_CODEBOOK_REL):
+        raise AssertionError(f"{phase}: the full-width stage-1 steps in bf16 on the card part "
+                             f"from the CPU's fp32 steps")
+    return dict(loss_rel=loss_rel, update_rel=update_rel, codebook_rel=cb_rel, code_flips=flips,
+                bf16_recon_rel=b_loss, bf16_prior_rel=b_prior, bf16_update_rel=b_update,
+                bf16_site_update_rel=b_site, bf16_codebook_rel=b_cb, bf16_code_flips=b_flips,
+                bf16_launches=bf16_launches)
 
 
 def phase_vae_train(torch, np, attn, tmp):

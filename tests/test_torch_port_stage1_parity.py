@@ -80,10 +80,11 @@ def test_stage1_trajectory_matches_jax_over_steps(bottleneck):
             assert rel_l2(a, b) < 1e-5
 
 
-# the tier-1 run: tiny widths, 60 steps of 16 on the e2e run's 32x32 data,
-# gamma 0.9 (a dead code's embedding shrinks by 0.9 a step, ~1e2 long at
-# step 1 and back to ~1 near step 45), a trace row every step
-REVIVAL = harness.Setup("vq", arch=dict(harness.TINY), n_per_class=320, batch=16, steps=60,
+# the tier-1 run: tiny widths, one epoch of 40 steps of 16 on the e2e run's
+# 32x32 data, gamma 0.9 (a dead code's embedding shrinks by 0.9 a step, so
+# the codes the first batch leaves dead come back from step ~11), a trace
+# row every step
+REVIVAL = harness.Setup("vq", arch=dict(harness.TINY), n_per_class=214, batch=16, steps=40,
                         gamma=0.9, every=1, dev_per_class=16)
 _PAIR = {}
 
@@ -105,24 +106,25 @@ def revival_pair():
 def test_trainers_keep_together_through_code_revival(what):
     """Both `VAETrainer.train()`s from one state on JAX's permutation,
     flips and noise, fp32 (`harness.run_pair`), through the codebook's
-    revival: the live codes grow tenfold and more over the run.
-    before: every step before the two codebooks part (cluster sizes at
-    relative L2 1e-5) holds the one-step bars: losses at rtol 2e-4,
+    revival: the live codes grow tenfold and more over the run (read 8 to
+    139).  before: every step before the two codebooks part (cluster sizes
+    at relative L2 1e-5) holds the one-step bars: losses at rtol 2e-4,
     parameter updates at relative L2 1e-3, embeddings, ema_w and cluster
     sizes at 1e-5, equal live and picked code counts; they part only once
-    dead codes come back (read: step 12 of 60, the 12th live code).
+    dead codes have come back (read: step 33 of 40, at 134 live codes).
     parting: at that step at most 2 of the 1,024 tokens take another code
     (read: 1), each package's code is the float64 nearest of its own
     token, and the token is a near-tie: its float64 gap between the two
-    nearest codes is below 1e-3 of the median token's (read 1.8e-7), so
-    the fp32 difference of the two encoders' tokens (read 1.7e-5 at most)
-    decides it.  after: the run ends alike: the dev probe's reconstruction
-    loss at rtol 1e-4 (read 2.3e-5), utilization within 2 of 1,024 codes
-    (read 1) and perplexity at rtol 2e-2 (read 9.1e-3), and every step's
-    live codes within 2 (read 1) and recon loss at rtol 2e-3 (read 5.9e-4)."""
+    nearest codes is below 1e-3 of the median token's (read 9.4e-7 against
+    3.5e-3), so the fp32 difference of the two encoders' tokens (read
+    8.9e-5 at most) decides it.  after: the run ends alike: the dev probe's
+    reconstruction loss at rtol 1e-4 (read 5.4e-5), utilization within 2 of
+    1,024 codes (read 0) and perplexity at rtol 2e-2 (read 4.9e-4), and
+    every step's live codes within 2 (read 0) and recon loss at rtol 2e-3
+    (read 1.6e-4)."""
     res = revival_pair()
     jr, tr, parting = res["jax"], res["torch"], res["parting"]
-    assert [r["step"] for r in jr["rows"]] == [r["step"] for r in tr["rows"]] == list(range(1, 61))
+    assert [r["step"] for r in jr["rows"]] == [r["step"] for r in tr["rows"]] == list(range(1, 41))
     assert jr["rows"][-1]["live_codes"] >= 10 * jr["rows"][0]["live_codes"]
     assert parting is not None and jr["rows"][parting - 1]["live_codes"] > jr["rows"][0]["live_codes"]
     if what == "before":
@@ -152,12 +154,13 @@ def test_full_width_vae_matches_jax(bottleneck):
     """The shipped widths (`VAEArch()`: channels (128, 256, 384), 2 res
     blocks a level, the d=384 mid-block attention), the VQ one with the
     shipped codebook, from one JAX initial state at fp32, batch 1 of the
-    e2e run's images: the encoder's raw map (KL: mean || log_var), the VQ
-    codes, and the decode of the posterior mean or of the quantized codes
-    at atol 2e-4 (the fp32 layers' bar)."""
+    e2e run's images at 32x32 (the layers and weights of 128x128, the
+    mid-block attention over 64 tokens): the encoder's raw map (KL: mean
+    || log_var), the VQ codes, and the decode of the posterior mean or of
+    the quantized codes at atol 2e-4 (the fp32 layers' bar)."""
     arch = dict(VQ) if bottleneck == "vq" else {}
     jvae = jbuild_vae(JVAEArch(**arch), dtype=jnp.float32)
-    x = harness.e2e.make_dataset(1)[0][1:2]
+    x = harness.e2e.make_dataset(1, size=32)[0][1:2]
     x01 = (x.astype(np.float32) / 255.0 - 0.5) / 0.5
     variables = jax.jit(lambda: jvae.init(
         {"params": jax.random.key(0), "sample": jax.random.key(1)}, x01))()
@@ -188,33 +191,63 @@ def test_full_width_vae_matches_jax(bottleneck):
     np.testing.assert_allclose(out.numpy(), out_ref, atol=2e-4)
 
 
-def test_probe_traces_a_reduced_run(capsys):
+def test_probe_traces_a_reduced_run(capsys, tmp_path):
     """`stage1_probe` on the CPU at a reduced width with `--trace-every`:
     a trace line every 2 of the 6 steps (the VQ keys of `trace_numbers`,
     finite), then the run's line with the dev loss and the VQ numbers;
-    `--cpu-draws` and `--init-seed` take the same path on any device."""
+    `--cpu-draws` and `--init-seed` take the same path on any device, and
+    `--init-vae` with a model file of the port's own draw from generator
+    seed 1 runs the very run `--init-seed 1` does."""
+    import re
+
+    from image_diffusion_torch.models.io import save_vae
     from image_diffusion_torch.tools import stage1_probe
 
+    common = ["--bottleneck", "vq", "--device", "cpu", "--channels", "32", "32", "32",
+              "--image-size", "16", "--n-per-class", "16", "--vae-steps", "6", "--fid-images",
+              "48", "--batch", "16", "--no-fid", "--trace-every", "2", "--cpu-draws"]
+    arch = harness.e2e.stage1_config(VAEArch(channels=(32, 32, 32), init_resolution=16), "vq",
+                                     16, 1, "unused").arch
+    init = str(tmp_path / "init.ckpt")
+    save_vae(init, arch, build_vae(arch, torch.float32, "cpu",
+                                   torch.Generator().manual_seed(1)).state_dict())
+    runs = []
     threads = torch.get_num_threads()
     torch.set_num_threads(1)  # the suite's workers share the cores
     try:
-        stage1_probe.main(["--bottleneck", "vq", "--device", "cpu", "--channels", "32", "64",
-                           "96", "--image-size", "32", "--n-per-class", "16", "--vae-steps", "6",
-                           "--fid-images", "48", "--batch", "16", "--no-fid", "--trace-every",
-                           "2", "--cpu-draws", "--init-seed", "1"])
+        for extra in (["--init-seed", "1"], ["--init-vae", init]):
+            stage1_probe.main(common + extra)
+            runs.append([re.sub(r"in [0-9.]+ s", "", ln) for ln in
+                         capsys.readouterr().out.splitlines() if ln.startswith("vq-bf16-seed0")])
     finally:
         torch.set_num_threads(threads)
-    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("vq-bf16-seed0")]
+    lines = runs[0]
     traces = [dict(kv.split("=") for kv in ln.split(" trace ")[1].split()) for ln in lines[:-1]]
     assert [t["step"] for t in traces] == ["2", "4", "6"]
     for t in traces:
         assert set(t) == {"step", "recon", "prior", "latent_rms", "latent_max", "probe_codes",
                           "live_codes", "dead_norm_q10", "dead_norm_q50", "dead_norm_q90"}
         assert all(np.isfinite(float(v)) for v in t.values())
-    assert "6 steps in" in lines[-1] and "utilization" in lines[-1]
+    assert "6 steps" in lines[-1] and "utilization" in lines[-1]
+    assert runs[1] == lines
 
 
 # ------------------------------------------------ the whole run (slow)
+
+
+def departures(run: dict, ref: dict, keys: list[str], end_keys: list[str]) -> dict:
+    """The largest departure of `run` from `ref` over the trace rows, per
+    key (relative to `ref`'s value, absolute for the code counts), and at
+    the end."""
+    out = {}
+    for k in keys:
+        d = [abs(r[k] - f[k]) / (1.0 if k.endswith("codes") else abs(f[k]))
+             for r, f in zip(run["rows"], ref["rows"])]
+        out[k] = max(d)
+    for k in end_keys:
+        d = abs(run["end"][k] - ref["end"][k])
+        out[f"end_{k}"] = d if k == "utilization" else d / abs(ref["end"][k])
+    return out
 
 
 @pytest.mark.slow
@@ -222,12 +255,31 @@ def test_probe_traces_a_reduced_run(capsys):
 def test_mode_a_over_the_whole_run(bottleneck):
     """Mode (a) over the e2e run's 500 steps at `harness.WIDE`: JAX, the
     port and the port moved by one ulp (the control) from one state on
-    one stream.  At every trace row the port's distance to JAX's state
-    (parameter updates, relative L2) stays within 10x the control's, so
-    whatever parts the two packages is of the size of fp32 rounding."""
+    one stream.  On every traced quantity (the step's recon loss, the
+    latents' RMS, KL's posterior std, VQ's live and picked codes) and end
+    number (the dev recon loss, VQ's utilization and perplexity) the
+    port's largest departure from JAX over the run is at most three times
+    the control's, so what parts the two packages is what one ulp does
+    (read: KL at most 1.1x; VQ at most 1.8x at 8 torch threads, but at 2
+    threads its end utilization departs 4.6x the control's, 0.0722 against
+    0.0156, and the test fails: the port revives codes faster than JAX
+    there while the control does not, a lead not yet explained).  The
+    distance of the parameter updates to JAX's stays below twice the
+    control's largest (read VQ 0.178 against 0.162; two unrelated runs
+    read ~1.4), and for KL, whose runs part smoothly, below twice the
+    control's at every row (read 1.3e-3 to 2.7e-2 against 1.5e-3 to
+    2.8e-2)."""
     res = harness.run_pair(harness.Setup(bottleneck))
-    for t, c in zip(res["torch"]["rows"], res["control"]["rows"]):
-        assert t["update_rel"] <= max(10 * c["update_rel"], 1e-3), t["step"]
+    jr, tr, cr = res["jax"], res["torch"], res["control"]
+    keys = ["recon", "latent_rms"] + (["posterior_std"] if bottleneck == "kl" else
+                                      ["live_codes", "probe_codes"])
+    ends = ["recon_loss"] + (["utilization", "dev_perplexity"] if bottleneck == "vq" else [])
+    port, control = departures(tr, jr, keys, ends), departures(cr, jr, keys, ends)
+    for k in port:
+        assert port[k] <= 3 * control[k], (k, port[k], control[k])
+    top = max(c["update_rel"] for c in cr["rows"])
+    for t, c in zip(tr["rows"], cr["rows"]):
+        assert t["update_rel"] <= 2 * (c["update_rel"] if bottleneck == "kl" else top), t["step"]
 
 
 @pytest.mark.slow

@@ -34,8 +34,8 @@ the e2e run computes them.
 `--write-init` writes the JAX trainer's initial VAE at the shipped widths
 (`VAEArch()` with the e2e run's bottleneck; `--wide`: at `WIDE`) as a
 model file, for `python -m image_diffusion_torch.tools.stage1_probe
---init-vae`; `--init-key K` draws it with params key K, and
-`--init-package torch` writes the port's own draw from generator K.
+--init-vae`; `--init-key K` draws it with params key K (the port's own
+draws are `stage1_probe --init-seed`).
 
 The slow tests in `test_torch_port_stage1_parity.py` run the same functions.
 """
@@ -51,6 +51,7 @@ import tempfile
 import time
 from unittest import mock
 
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -143,6 +144,15 @@ def vq_end(counts: np.ndarray, n_images: int) -> dict:
 
 # ------------------------------------------------------------------- JAX
 
+_flax_init = nn.Module.init
+
+
+def jitted_init(module, *args, **kwargs):
+    """`flax.linen.Module.init` as one jitted program: the same variables
+    as the op-by-op init the JAX trainer runs, several times faster on the
+    CPU."""
+    return jax.jit(lambda: _flax_init(module, *args, **kwargs))()
+
 
 class JaxRun:
     """The JAX trainer at `s`, its step wrapped to record trace rows and
@@ -151,8 +161,9 @@ class JaxRun:
     def __init__(self, s: Setup, imgs, dev, out: str, keep: bool = False):
         self.s, self.dev, self.keep = s, dev, keep
         jc, _ = configs(s, out)
-        self.jt = JTrainer(jc, JDataset(imgs), None, JLogger(out, "jax", True, 50),
-                           JHolder(50), run_name="jax")
+        with mock.patch.object(nn.Module, "init", jitted_init):
+            self.jt = JTrainer(jc, JDataset(imgs), None, JLogger(out, "jax", True, 50),
+                               JHolder(50), run_name="jax")
         vae = self.jt.vae
         self.initial = jax.tree.map(np.array, {"params": self.jt.state.vae_params,
                                                **({"codebook": self.jt.state.codebook}
@@ -459,30 +470,21 @@ def code_flips(s: Setup, jr: JaxRun, imgs: np.ndarray, step: int,
             "token_rel": token_rel}
 
 
-def write_init(path: str, bottleneck: str, wide: bool = False, key: int = 0,
-               package: str = "jax") -> None:
-    """An initial VAE for the e2e run's stage 1 as a native model file, at
-    the shipped widths or (`wide`) at `WIDE`: the JAX trainer's init with
-    params key `key` (`jax_initial`), or the port's (`build_vae`'s draw from
-    a torch generator seeded `key`, the trainer's being 0)."""
-    from image_diffusion_torch.models import build_vae
+def write_init(path: str, bottleneck: str, wide: bool = False, key: int = 0) -> None:
+    """The JAX trainer's initial VAE for the e2e run's stage 1 (`jax_initial`
+    with params key `key`, the trainer's being 0) as a native model file, at
+    the shipped widths or (`wide`) at `WIDE`."""
     from image_diffusion_torch.models.io import save_vae
 
     s = Setup(bottleneck, arch=dict(WIDE) if wide else {})
     arch = configs(s, "unused")[1].arch
-    if package == "jax":
-        state = vae_state_dict(jax_initial(s, res=arch.init_resolution, key=key))
-    else:
-        state = build_vae(arch, torch.float32, "cpu", torch.Generator().manual_seed(key)).state_dict()
-    save_vae(path, arch, state)
+    save_vae(path, arch, vae_state_dict(jax_initial(s, res=arch.init_resolution, key=key)))
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--write-init", default=None, metavar="PATH")
-    p.add_argument("--init-key", type=int, default=0,
-                   help="--write-init: the init's params key (JAX) or generator seed (torch).")
-    p.add_argument("--init-package", choices=["jax", "torch"], default="jax")
+    p.add_argument("--init-key", type=int, default=0, help="--write-init: the init's params key.")
     p.add_argument("--wide", action="store_true", help="--write-init at the widths WIDE.")
     p.add_argument("--mode", choices=["a", "b"])
     p.add_argument("--bottleneck", choices=["kl", "vq"], required=True)
@@ -494,7 +496,7 @@ def main(argv=None) -> None:
     p.add_argument("--out")
     args = p.parse_args(argv)
     if args.write_init:
-        write_init(args.write_init, args.bottleneck, args.wide, args.init_key, args.init_package)
+        write_init(args.write_init, args.bottleneck, args.wide, args.init_key)
         return
     torch.manual_seed(0)
     if args.mode == "a":
