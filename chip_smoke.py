@@ -82,7 +82,8 @@ Phases, one status line each; any failure exits non-zero:
      per step; (b)
      the codebook lookup on the card's fp32 encoder output for batch 48
      against float64 distances; (c) one EMA update at batch 48 against its
-     float64 statement, and the codebook's device time; (d) 25 steps
+     float64 statement and bit-equal to itself repeated, and the
+     codebook's device time; (d) 25 steps
      through `train_vae` as in phase 7, the perplexity at each flush and
      on the dev set, a resume that restores the codebook, a profile; (e)
      one step at grad_accum 2 against grad_accum 1 from one state and
@@ -137,10 +138,14 @@ Phases, one status line each; any failure exits non-zero:
      before the clip, clipped gradients, Adam's second moments, BatchNorm
      and codebook statistics), the ranks' parameters bit-equal, launches per rank, and the gloo all-reduce's
      time (the cost of gloo on one card, not a scaling figure); (c) the
-     27-image dpm-20 and ddpm-1000 grids sharded in one process over
-     ["cuda:0", "cuda:0"] (28 padded rows) against the unsharded grids,
-     each shard bit-equal to sampling its rows alone, with wall time and
-     idle share beside phase 5's, and `sample_grid --data-parallel 1`.
+     27-image dpm-20, ddim-50 (eta 1) and ddpm-1000 grids sharded in one
+     process over ["cuda:0", "cuda:0"] (28 padded rows) against the
+     unsharded grids, the dpm and ddim grids' shards each bit-equal to
+     sampling its rows alone (ddim with its rows of the grid's own noise,
+     a block shown first to reproduce the unsharded grid bit for bit), the
+     ddim grid at 28 padded rows against it at 27 as the control of batch
+     composition, with wall time and idle share beside phase 5's, and
+     `sample_grid --data-parallel 1`.
      The ranks are this script under `--rank-worker`.
   15. the end-to-end quality run in this process
      (`image_diffusion_torch.tools.e2e_synthetic_run.run`), KL and then
@@ -298,13 +303,19 @@ DP_STATS_REL = 1e-2
 # the metrics that are a gradient's global norm before the clip
 GRAD_NORMS = ("unet/grad", "vae/vae_grad", "gan/disc_grad")
 # phase 14: the grid sharded over two shards of the card (28 UNet rows a
-# call) against the unsharded grid (54): relative L2.  Each shard is held
-# bit-equal to `sample_batch` of its own rows (dpm-20); against the
-# 54-row grid the rows see cuBLAS and cuDNN at another row count, and the
-# random-weight UNet with guidance up to 9 magnifies that bf16 rounding
-# (1.0e-1 for dpm-20 on an H100 80GB HBM3 at 700 W); a row that took
-# another row's label, scale or noise gives O(1)
+# call) against the unsharded grid (54): relative L2, for dpm-20 and
+# ddpm-1000.  Against the 54-row grid the rows see cuBLAS and cuDNN at
+# another row count, and the random-weight UNet with guidance up to 9
+# magnifies that bf16 rounding (1.0e-1 for dpm-20, 1.1e-2 for ddpm-1000 on
+# an H100 80GB HBM3 at 700 W); a row that took another row's label, scale
+# or noise gives O(1)
 SHARD_GRID_REL = 0.5
+# ddim-50 at eta 1 magnifies it to about what two unrelated grids read
+# (7.9e-1; its control, the unsharded grid at the 28 padded rows against it
+# at 27 with the same noise rows, 2.5e-1), so its grid is held by each
+# shard's bit-equality to `sample_batch` of its own rows and noise rows
+# (as dpm-20's), not by a relative L2
+SHARD_DDIM_STEPS = 50
 # csrc/<name>.cu of every kernel the paths run
 KERNEL_SOURCES = ["packed_attention", "packed_attention_bwd", "flash_attention"]
 # phase 15: the end-to-end quality tool at full width and reduced depth
@@ -1262,10 +1273,12 @@ def phase_vq_train(torch, np, attn, tmp):
     with torch.no_grad(), _Lookup() as lookup:
         vae(normalize_batch(x))
     z = lookup.taken[0][1].cuda().reshape(B_TRAIN, 32, 32, cfg.arch.z_dim)
-    cb = copy.deepcopy(vae.codebook)
+    cb, again = copy.deepcopy(vae.codebook), copy.deepcopy(vae.codebook)
     state0 = [b.double().cpu() for b in (cb.ema_cluster_size, cb.ema_w, cb.embeddings.weight)]
     with torch.no_grad(), _Lookup() as lookup:
         cb(z, train=True)  # (c)'s update, on the same codes
+    with torch.no_grad():
+        again(z, train=True)  # (c): the update repeated from the same state and tokens
     codes, flat = lookup.taken[0]
     tokens, e = flat.double(), state0[2]
     dist = (tokens.square().sum(1, keepdim=True) - 2.0 * tokens @ e.T + e.square().sum(1)[None])
@@ -1295,16 +1308,19 @@ def phase_vq_train(torch, np, attn, tmp):
                for name, got, ref in (("cluster sizes", cb.ema_cluster_size, smoothed),
                                       ("ema_w", cb.ema_w, w),
                                       ("embeddings", cb.embeddings.weight, w / smoothed[:, None]))}
+    repeat_equal = all(torch.equal(a, b) for a, b in zip(cb.buffers(), again.buffers()))
     lookup_ms = device_ms(torch, lambda: cb(z))
     codebook_ms = device_ms(torch, lambda: cb(z, train=True))
     log(f"phase 9 EMA update: batch {B_TRAIN} on the card vs float64 on the host, max|card - "
         f"fp64| / max|fp64|: " + ", ".join(f"{k} {v:.3e}" for k, v in ema_err.items())
-        + f" (tolerance {EMA_REL}); the codebook's device time at batch {B_TRAIN}: lookup "
+        + f" (tolerance {EMA_REL}); the update repeated from the same state and tokens "
+        f"bit-equal {repeat_equal}; the codebook's device time at batch {B_TRAIN}: lookup "
         f"{lookup_ms:.3f} ms, lookup + update {codebook_ms:.3f} ms, {codebook_ms / run['busy_ms']:.4f} "
         f"of the profiled step's {run['busy_ms']:.3f} ms busy")
-    if not max(ema_err.values()) <= EMA_REL:
-        raise AssertionError("the EMA update on the card disagrees with its float64 statement")
-    del cb, z
+    if not (max(ema_err.values()) <= EMA_REL and repeat_equal):
+        raise AssertionError("the EMA update on the card disagrees with its float64 statement "
+                             "or with itself")
+    del cb, again, z
 
     # (e) grad accumulation at full width: one state, one batch, accum 1 and 2.
     # The bf16 encoder rounds differently at micro-batch 24 than at 48, which
@@ -2507,8 +2523,8 @@ def _rank_worker(case: str, work: str) -> int:
 
 def phase_parallel(torch, np, attn, tmp, vae_state, unet_state, grid):
     """Phase 14: the multi-device layer on the one card (see the module
-    doc).  `grid`: phase 5's ddpm-1000 images on the host and its dpm-20
-    seconds, device busy and wall ms."""
+    doc).  `grid`: phase 5's ddpm-1000 images on the host and seconds,
+    and its dpm-20 device busy and wall ms."""
     work = os.path.join(tmp, "phase14")
     os.makedirs(work)
     _random_lpips_file(torch, os.path.join(work, "lpips.pth"))
@@ -2614,50 +2630,85 @@ def _phase14_sharding(torch, attn, work, vae_state, unet_state, grid) -> dict:
     pipe = DiffusionPipeline(VAEArch(), vae_state, UNetArch(), unet_state, ScheduleConfig(),
                              "a,b,c")
     scales, devices = list(range(1, 10)), ["cuda:0", "cuda:0"]
-    runs = {}
-    for sampler, n_steps, ref in (("dpm", 20, None), ("ddpm", 1000, grid["ddpm"])):
-        kw = dict(seed=0, sampler=sampler, num_inference_steps=n_steps if sampler == "dpm" else None)
-        if ref is None:
-            ref = pipe.sample(scales, **kw).cpu()
-        attn.packed_attention.launches = attn.flash_attention.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        imgs = pipe.sample(scales, devices=devices, **kw)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        runs[sampler] = dict(seconds=secs, rel_l2=rel_l2(imgs, ref),
-                             launches=[attn.packed_attention.launches, attn.flash_attention.launches],
-                             finite=bool(torch.isfinite(imgs).all()), shape=list(imgs.shape))
-    # each shard against sample_batch of its own 14 rows, unsharded: bit-equal
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    x_init = torch.randn((27, *pipe.latent_shape), generator=gen, device="cuda")
     labels = torch.arange(3).repeat(9)
     row_scales = torch.tensor(scales, dtype=torch.float32).repeat_interleave(3)
-    sharded = pipe.sample(scales, seed=0, sampler="dpm", num_inference_steps=20, devices=devices)
-    shard_equal = []
-    for rows in (list(range(14)), list(range(14, 27)) + [0]):
-        own = pipe.sample_batch(labels[rows], row_scales[rows], x_init[rows], sampler="dpm",
-                                num_inference_steps=20)
-        n = min(len(rows), 27 - rows[0])
-        shard_equal.append(bool(torch.equal(own[:n], sharded[rows[0]:rows[0] + n])))
-    runs["dpm"]["shards_equal_own_rows"] = shard_equal
-    log(f"phase 14 (c) dpm-20 over {devices}: each shard's rows against sample_batch of those "
-        f"14 rows unsharded, bit-equal {shard_equal}")
-    if not all(shard_equal):
-        raise AssertionError("phase 14 (c): a shard's rows differ from sampling those rows alone")
+    # the grid's own draws, as `pipe.sample(seed=0)` makes them: the initial
+    # latents, then one (27, h, w, z) draw a ddim step
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x_init = torch.randn((27, *pipe.latent_shape), generator=gen, device="cuda")
+    block = torch.stack([torch.randn(x_init.shape, generator=gen, device="cuda")
+                         for _ in range(SHARD_DDIM_STEPS)])
+    shard_rows = (list(range(14)), list(range(14, 27)) + [0])  # the second: the pad row 0
+    runs = {}
+    for sampler, n_steps, eta in (("dpm", 20, 0.0), ("ddim", SHARD_DDIM_STEPS, 1.0),
+                                  ("ddpm", 1000, 0.0)):
+        kw = dict(sampler=sampler, num_inference_steps=None if sampler == "ddpm" else n_steps,
+                  eta=eta)
+        if sampler == "ddpm":  # phase 5's grid
+            ref, ref_s = grid["ddpm"], grid["ddpm_s"]
+        else:
+            t0 = time.perf_counter()
+            ref = pipe.sample(scales, seed=0, **kw)
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+        attn.packed_attention.launches = attn.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        imgs = pipe.sample(scales, seed=0, devices=devices, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        r = runs[sampler] = dict(
+            seconds=secs, unsharded_seconds=ref_s, rel_l2=rel_l2(imgs, ref),
+            launches=[attn.packed_attention.launches, attn.flash_attention.launches],
+            finite=bool(torch.isfinite(imgs).all()), shape=list(imgs.shape))
+        if sampler == "ddpm":  # 1,000 steps: held by its relative L2 alone
+            continue
+        noise = block if eta else None
+        if eta:
+            # the block is the generator's stream: all 27 rows from it
+            # reproduce the unsharded grid; the control: the same grid at
+            # the 28 padded rows, what batch composition alone does
+            via_block = pipe.sample_batch(labels, row_scales, x_init, noise=block, **kw)
+            r["block_equal"] = bool(torch.equal(via_block, ref))
+            pad = shard_rows[0] + shard_rows[1]
+            padded = pipe.sample_batch(labels[pad], row_scales[pad], x_init[pad],
+                                       noise=block[:, pad], **kw)
+            r["control_rel_l2"] = rel_l2(padded[:27], ref)
+        # each shard against sample_batch of its own 14 rows (and their
+        # noise rows), unsharded: bit-equal
+        r["shards_equal_own_rows"] = []
+        for rows in shard_rows:
+            own = pipe.sample_batch(labels[rows], row_scales[rows], x_init[rows],
+                                    noise=None if noise is None else noise[:, rows], **kw)
+            n = min(len(rows), 27 - rows[0])
+            r["shards_equal_own_rows"].append(bool(torch.equal(own[:n],
+                                                               imgs[rows[0]:rows[0] + n])))
+        name = f"{sampler}-{n_steps}" + (f" eta {eta:g}" if eta else "")
+        log(f"phase 14 (c) {name} over {devices}: each shard's rows against sample_batch of "
+            f"those 14 rows unsharded" + (" with their rows of the noise block" if eta else "")
+            + f", bit-equal {r['shards_equal_own_rows']}"
+            + (f"; the {SHARD_DDIM_STEPS}-step noise block through sample_batch against the "
+               f"unsharded grid, bit-equal {r['block_equal']}; control: the unsharded grid at "
+               f"the 28 padded rows against it at 27, the same noise rows, rel L2 "
+               f"{r['control_rel_l2']:.3e}" if eta else ""))
+        if not all(r["shards_equal_own_rows"]) or not r.get("block_equal", True):
+            raise AssertionError(f"phase 14 (c) {name}: a shard's rows differ from sampling "
+                                 "those rows alone, or the noise block is not the grid's draws")
     busy_prof, _, wall = device_profile(torch, lambda: pipe.sample(
         scales, seed=0, sampler="dpm", num_inference_steps=20, devices=devices), iters=1)
     busy = sum(busy_prof.values())
     runs["dpm"].update(busy_ms=busy, wall_ms=wall)
     for sampler, r in runs.items():
-        n = 20 if sampler == "dpm" else 1000
-        log(f"phase 14 (c) {sampler}-{n} grid over {devices} in one process: {r['shape']} "
-            f"(28 padded rows, 14 a shard) in {r['seconds']:.2f} s against phase 5's "
-            f"{grid[sampler + '_s']:.2f} s unsharded; rel L2 to the unsharded grid "
-            f"{r['rel_l2']:.3e} (tolerance {SHARD_GRID_REL}); {r['launches'][0]} packed "
-            f"launches ({r['launches'][0] / (2 * n):.0f} a step per shard), "
-            f"{r['launches'][1]} flash (one decode a shard)")
-        if not (r["finite"] and r["rel_l2"] <= SHARD_GRID_REL
+        n = dict(dpm=20, ddim=SHARD_DDIM_STEPS, ddpm=1000)[sampler]
+        held = sampler != "ddim"
+        log(f"phase 14 (c) {sampler}-{n} grid{' at eta 1' if sampler == 'ddim' else ''} over "
+            f"{devices} in one process: {r['shape']} (28 padded rows, 14 a shard) in "
+            f"{r['seconds']:.2f} s against {r['unsharded_seconds']:.2f} s unsharded"
+            + ("" if sampler != "ddpm" else " (phase 5's)") + f"; rel L2 to the unsharded grid "
+            f"{r['rel_l2']:.3e} "
+            + (f"(tolerance {SHARD_GRID_REL})" if held else "(held by its shards' bit-equality)")
+            + f"; {r['launches'][0]} packed launches ({r['launches'][0] / (2 * n):.0f} a step per "
+            f"shard), {r['launches'][1]} flash (one decode a shard)")
+        if not (r["finite"] and (r["rel_l2"] <= SHARD_GRID_REL or not held)
                 and r["launches"] == [2 * 14 * n, 2]):
             raise AssertionError(f"phase 14 (c): the sharded {sampler} grid is wrong")
     log(f"phase 14 (c) dpm-20 sharded profile: device busy {busy:.3f} ms of a {wall:.3f} ms grid "
@@ -2934,7 +2985,7 @@ def main() -> int:
     dpm_prof, dpm_kernels, dpm_wall = device_profile(torch, lambda: pipe.sample(
         scales, seed=0, sampler="dpm", num_inference_steps=20, output="uint8"), iters=1)
     dpm_busy = sum(dpm_prof.values())
-    grid = dict(ddpm=imgs.cpu(), ddpm_s=ddpm_s, dpm_s=dpm_s, dpm_busy=dpm_busy, dpm_wall=dpm_wall)
+    grid = dict(ddpm=imgs.cpu(), ddpm_s=ddpm_s, dpm_busy=dpm_busy, dpm_wall=dpm_wall)
     log(f"phase 5 dpm-20 profile: device busy {dpm_busy:.3f} ms of a {dpm_wall:.3f} ms grid "
         f"(idle share {idle_share(dpm_busy, dpm_wall)}); {dpm_kernels:.0f} kernels")
 
@@ -3031,6 +3082,8 @@ def main() -> int:
                                 for k, v in par["gloo2"].items() if k.startswith("unet")},
                              "phase 14 ddpm-1000 grid over 2 shards":
                                  par["sharded"]["ddpm"]["launches"][0],
+                             "phase 14 ddim-50 grid at eta 1 over 2 shards":
+                                 par["sharded"]["ddim"]["launches"][0],
                              "phase 14 dpm-20 grid over 2 shards":
                                  par["sharded"]["dpm"]["launches"][0],
                              "phase 14 sample_grid --data-parallel 1 dpm":
@@ -3111,6 +3164,8 @@ def main() -> int:
                                 for k, v in par["gloo2"].items() if not k.startswith("unet")},
                              "phase 14 ddpm-1000 grid over 2 shards":
                                  par["sharded"]["ddpm"]["launches"][1],
+                             "phase 14 ddim-50 grid at eta 1 over 2 shards":
+                                 par["sharded"]["ddim"]["launches"][1],
                              "phase 14 dpm-20 grid over 2 shards":
                                  par["sharded"]["dpm"]["launches"][1],
                              **{f"phase 15 e2e_synthetic_run {k}": r["launches"][2]

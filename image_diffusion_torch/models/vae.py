@@ -171,7 +171,8 @@ class Codebook(nn.Module):
 
         The codes are looked up before any update.  `train`: the batch's
         statistics, counts (the code histogram) and dw (the sum of the fp32
-        tokens of each code), update the EMA state in place; or, with
+        tokens of each code, the one-hot codes' product with the tokens as
+        in the JAX package), update the EMA state in place; or, with
         `ema_stats` (from `empty_stats`), are added to it and nothing is
         updated, so that grad accumulation applies one `ema_update` from
         the sums over its micro-batches.  `valid_mask` (B,) bool: the
@@ -188,7 +189,12 @@ class Codebook(nn.Module):
             n_tokens *= dist.get_world_size(self.group)
         if train:
             with torch.no_grad():
-                dw = torch.zeros_like(emb).index_add_(0, idx, flat)
+                # JAX's statistic: the one-hot codes' product with the
+                # tokens, a sum in a fixed order (index_add_ accumulates in
+                # arrival order, on the card through atomics: not
+                # deterministic, and ~10x the float64 error at full width)
+                one_hot = torch.zeros(idx.numel(), emb.shape[0], device=flat.device)
+                dw = one_hot.scatter_(1, idx[:, None], 1.0).T @ flat
                 if self.group is not None:
                     dist.all_reduce(dw, group=self.group)
                 if ema_stats is None:

@@ -123,6 +123,32 @@ def test_sample_batch_noise_block_and_generator_state(pipe):
     assert torch.equal(gens[0].get_state(), gens[1].get_state())
 
 
+@pytest.mark.parametrize("sampler,steps,eta", [("ddim", 6, 1.0), ("dpm", 5, 0.0)])
+def test_each_shard_equals_its_rows_alone(pipe, sampler, steps, eta):
+    """The grid's own draws rebuilt from its seed (the initial latents,
+    then one grid-shaped draw a step) reproduce the one-device grid bit for
+    bit through `noise=`; over 2 shards each shard's rows equal, bit for
+    bit, `sample_batch` of its 14 rows alone with their rows of that block
+    (the second shard's: 14-26 and the wrap-around pad row 0), so the
+    sharded draw path hands each row its own noise exactly."""
+    scales = list(range(1, 10))
+    labels = torch.arange(3).repeat(9)
+    row_scales = torch.tensor(scales, dtype=torch.float32).repeat_interleave(3)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((27, *pipe.latent_shape), generator=g)
+    block = torch.stack([torch.randn(x.shape, generator=g) for _ in range(steps)])
+    kw = dict(sampler=sampler, num_inference_steps=steps, eta=eta)
+    ref = pipe.sample(scales, seed=4, **kw)
+    if eta:
+        assert torch.equal(pipe.sample_batch(labels, row_scales, x, noise=block, **kw), ref)
+    sharded = pipe.sample(scales, seed=4, devices=["cpu"] * 2, **kw)
+    for rows in (list(range(14)), list(range(14, 27)) + [0]):
+        own = pipe.sample_batch(labels[rows], row_scales[rows], x[rows],
+                                noise=block[:, rows] if eta else None, **kw)
+        n = min(len(rows), 27 - rows[0])
+        assert torch.equal(own[:n], sharded[rows[0]:rows[0] + n]), rows[0]
+
+
 def test_row_generators_go_with_their_rows(pipe):
     """Per-row generators under ddpm: a request's image is the same alone,
     in a one-device batch, and in any slot of a batch sharded 2 or 3 ways

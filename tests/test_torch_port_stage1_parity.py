@@ -96,7 +96,7 @@ def revival_pair():
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
         try:
-            _PAIR.update(harness.run_pair(REVIVAL, control=False, flips=True))
+            _PAIR.update(harness.run_pair(REVIVAL, controls=0, flips=True))
         finally:
             torch.set_num_threads(threads)
     return _PAIR
@@ -235,51 +235,59 @@ def test_probe_traces_a_reduced_run(capsys, tmp_path):
 # ------------------------------------------------ the whole run (slow)
 
 
-def departures(run: dict, ref: dict, keys: list[str], end_keys: list[str]) -> dict:
-    """The largest departure of `run` from `ref` over the trace rows, per
-    key (relative to `ref`'s value, absolute for the code counts), and at
-    the end."""
-    out = {}
-    for k in keys:
-        d = [abs(r[k] - f[k]) / (1.0 if k.endswith("codes") else abs(f[k]))
-             for r, f in zip(run["rows"], ref["rows"])]
-        out[k] = max(d)
-    for k in end_keys:
-        d = abs(run["end"][k] - ref["end"][k])
-        out[f"end_{k}"] = d if k == "utilization" else d / abs(ref["end"][k])
-    return out
+# the slow VQ test's shared states: JAX's initial state and 7 moved by one ulp
+STATES = 8
 
 
 @pytest.mark.slow
 @pytest.mark.parametrize("bottleneck", ["kl", "vq"])
 def test_mode_a_over_the_whole_run(bottleneck):
-    """Mode (a) over the e2e run's 500 steps at `harness.WIDE`: JAX, the
-    port and the port moved by one ulp (the control) from one state on
-    one stream.  On every traced quantity (the step's recon loss, the
-    latents' RMS, KL's posterior std, VQ's live and picked codes) and end
-    number (the dev recon loss, VQ's utilization and perplexity) the
-    port's largest departure from JAX over the run is at most three times
-    the control's, so what parts the two packages is what one ulp does
-    (read: KL at most 1.1x; VQ at most 1.8x at 8 torch threads, but at 2
-    threads its end utilization departs 4.6x the control's, 0.0722 against
-    0.0156, and the test fails: the port revives codes faster than JAX
-    there while the control does not, a lead not yet explained).  The
-    distance of the parameter updates to JAX's stays below twice the
-    control's largest (read VQ 0.178 against 0.162; two unrelated runs
-    read ~1.4), and for KL, whose runs part smoothly, below twice the
+    """Mode (a) over the e2e run's 500 steps at `harness.WIDE`: JAX and the
+    port from one state on one stream, and the same from states moved by
+    one ulp.
+
+    KL (one control, the port moved by one ulp, in process): on every
+    traced quantity (the step's recon loss, the latents' RMS, the
+    posterior std) and the end recon loss the port's largest departure
+    from JAX is at most three times the control's (read at most 1.1x),
+    and the distance of the parameter updates to JAX's below twice the
     control's at every row (read 1.3e-3 to 2.7e-2 against 1.5e-3 to
-    2.8e-2)."""
-    res = harness.run_pair(harness.Setup(bottleneck))
-    jr, tr, cr = res["jax"], res["torch"], res["control"]
-    keys = ["recon", "latent_rms"] + (["posterior_std"] if bottleneck == "kl" else
-                                      ["live_codes", "probe_codes"])
-    ends = ["recon_loss"] + (["utilization", "dev_perplexity"] if bottleneck == "vq" else [])
-    port, control = departures(tr, jr, keys, ends), departures(cr, jr, keys, ends)
-    for k in port:
-        assert port[k] <= 3 * control[k], (k, port[k], control[k])
-    top = max(c["update_rel"] for c in cr["rows"])
-    for t, c in zip(tr["rows"], cr["rows"]):
-        assert t["update_rel"] <= 2 * (c["update_rel"] if bottleneck == "kl" else top), t["step"]
+    2.8e-2).
+
+    VQ (the paired rule, `harness.paired`): the port and JAX each from
+    `STATES` shared states (JAX's initial state and, `perturb` seeds 1-7,
+    that state moved by one ulp), each run a process on its own 2 cores.
+    A run of a VQ codebook parts from its twin at its first near-tie code
+    flip and then goes its own chaotic way, so one pair's departure is one
+    draw of the rounding, and a bar on one draw (`harness.verdict`) is met
+    or not by chance.  Over the states, a fault of the port moves its gain
+    over JAX one way; rounding moves it both ways.  The test fails if on
+    any of `harness.PAIR_KEYS` (the mean live codes over steps 100-300,
+    the end utilization, perplexity and recon loss) every state's gain
+    has one sign (chance 2 / 2**8 a key under rounding).  The distance of
+    the port's parameter updates to JAX's stays below twice control 1's
+    largest (read before: 0.178 against 0.162; two unrelated runs ~1.4).
+    Read once (3,648 s on 4 workers of 2 cores): the live-code gains
+    +25.6, -18.2, +6.7, +9.1, -21.7, +1.7, -22.8, +4.7, the end
+    utilization's -0.084 to +0.052, perplexity's -33.3 to +29.2 and recon
+    loss's -1.9e-3 to +1.7e-3: both signs on every key.  On the same runs
+    the one-draw rule read the port's live codes 42 inside the 7 port
+    controls' largest, 64; against 4 port and 2 JAX controls, whose
+    largest read 31, the same 42 was outside."""
+    vq = bottleneck == "vq"
+    res = harness.run_pair(harness.Setup(bottleneck), controls=STATES - 1 if vq else 1,
+                           jax_twins=STATES - 1 if vq else 0, workers=4 if vq else 0)
+    print(harness.table(res))  # the readings, shown with -rP
+    if vq:
+        assert not res["paired"]["consistent"], res["paired"]
+    else:
+        deps = res["departures"]
+        for k, port in deps["torch"].items():
+            assert port <= 3 * deps["control1"][k], (k, port, deps["control1"][k])
+    control = res["controls"][0]["rows"]
+    top = max(c["update_rel"] for c in control)
+    for t, c in zip(res["torch"]["rows"], control):
+        assert t["update_rel"] <= 2 * (top if vq else c["update_rel"]), t["step"]
 
 
 @pytest.mark.slow
