@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
+from ..core.profiling import span
 
 
 class Conv2d(nn.Conv2d):
@@ -67,23 +68,24 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, C, H, W = x.shape
-        G = self.num_groups
-        cg = C // G
-        n = cg * H * W
-        x32 = x.float()
-        g1 = x32.sum(dim=(2, 3)).view(B, G, cg).sum(-1)
-        g2 = (x32 * x32).sum(dim=(2, 3)).view(B, G, cg).sum(-1)
-        mean = g1 / n
-        # E[x^2]-E[x]^2 can go slightly negative by cancellation
-        var = torch.clamp(g2 / n - mean * mean, min=0.0)
-        inv = torch.rsqrt(var + 1e-5)
-        a = inv.repeat_interleave(cg, dim=1) * self.weight.float()
-        b = self.bias.float() - mean.repeat_interleave(cg, dim=1) * a
-        a, b = a[:, :, None, None], b[:, :, None, None]
-        if x.dtype == torch.bfloat16:
-            return x * a.to(torch.bfloat16) + b.to(torch.bfloat16)
-        return (x32 * a + b).to(x.dtype)
+        with span("groupnorm"):
+            B, C, H, W = x.shape
+            G = self.num_groups
+            cg = C // G
+            n = cg * H * W
+            x32 = x.float()
+            g1 = x32.sum(dim=(2, 3)).view(B, G, cg).sum(-1)
+            g2 = (x32 * x32).sum(dim=(2, 3)).view(B, G, cg).sum(-1)
+            mean = g1 / n
+            # E[x^2]-E[x]^2 can go slightly negative by cancellation
+            var = torch.clamp(g2 / n - mean * mean, min=0.0)
+            inv = torch.rsqrt(var + 1e-5)
+            a = inv.repeat_interleave(cg, dim=1) * self.weight.float()
+            b = self.bias.float() - mean.repeat_interleave(cg, dim=1) * a
+            a, b = a[:, :, None, None], b[:, :, None, None]
+            if x.dtype == torch.bfloat16:
+                return x * a.to(torch.bfloat16) + b.to(torch.bfloat16)
+            return (x32 * a + b).to(x.dtype)
 
 
 class Residual(nn.Module):

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..core.config import UNetArch
+from ..core.profiling import span
 from .. import ops  # noqa: F401  (registers the packed attention operators)
 from .layers import DiffusionBlock, Downsample, GroupNorm, TimeEmbedding, Upsample, conv
 
@@ -99,21 +100,22 @@ class UNet(nn.Module):
         """x: (B, H, W, z_dim) latents; timestep: (B,) int; context: (B,)
         int class ids or None; context_mask: (B, 1) {0, 1} or None.
         Returns (B, H, W, z_dim) in the compute dtype."""
-        t = self.time_embedding(timestep)
-        if context is not None:
-            c = self.class_embedding.weight.to(self.dtype)[context]
-            if context_mask is not None:
-                c = c * context_mask.to(self.dtype)
-            t = t + c
+        with span("unet.forward", rows=x.shape[0]):
+            t = self.time_embedding(timestep)
+            if context is not None:
+                c = self.class_embedding.weight.to(self.dtype)[context]
+                if context_mask is not None:
+                    c = c * context_mask.to(self.dtype)
+                t = t + c
 
-        h = self.in_conv(x.to(self.dtype).permute(0, 3, 1, 2))
-        skips = []
-        for block, down in zip(self.down_blocks, self.downsamples):
-            h = self._block(block, h, t)
-            skips.append(h)
-            h = down(h)
-        for block in self.mid_blocks:
-            h = self._block(block, h, t)
-        for up, block in zip(self.upsamples, self.ups):
-            h = self._block(block, up(h), t, skips.pop())
-        return self.out_conv(h).permute(0, 2, 3, 1)
+            h = self.in_conv(x.to(self.dtype).permute(0, 3, 1, 2))
+            skips = []
+            for block, down in zip(self.down_blocks, self.downsamples):
+                h = self._block(block, h, t)
+                skips.append(h)
+                h = down(h)
+            for block in self.mid_blocks:
+                h = self._block(block, h, t)
+            for up, block in zip(self.upsamples, self.ups):
+                h = self._block(block, up(h), t, skips.pop())
+            return self.out_conv(h).permute(0, 2, 3, 1)

@@ -30,6 +30,7 @@ from ..compat.from_jax import unet_flax_params, unet_state_dict, vae_flax_variab
 from ..core import checkpoint as ckpt
 from ..core import resolve_device
 from ..core.config import ScheduleConfig, UNetArch, VAEArch, _build
+from ..core.profiling import span
 from ..core.progress import progress as progress_bar
 from ..models import build_unet, build_vae
 from ..ops import schedule as S
@@ -149,59 +150,60 @@ class DiffusionPipeline:
         (a pad row gets a copy of its generator's state); `generator`'s
         draws are made at the unpadded batch's shape on every shard, which
         keeps its rows (`parallel.mesh.global_row_draw`)."""
-        if output not in ("float32", "uint8"):
-            raise ValueError(f"unknown output {output!r}; expected 'float32' or 'uint8'")
-        x = torch.as_tensor(x_init, dtype=torch.float32)
-        B = x.shape[0]
-        labels = torch.as_tensor(labels).to(torch.int64)
-        scales = torch.as_tensor(cfg_scales, dtype=torch.float32).reshape(B)
-        if noise is not None:
-            noise = torch.as_tensor(noise, dtype=torch.float32)
-        if row_generators is not None and len(row_generators) != B:
-            raise ValueError(f"{len(row_generators)} row generators for a batch of {B}")
-        run = dict(sampler=sampler, n_steps=num_inference_steps, eta=eta, output=output)
-        devices = [_indexed(d) for d in (devices or [self.device])]
-        n = len(devices)
-        share = pad_to_multiple(B, n) // n
-        order = torch.arange(share * n) % B  # the padded batch: rows wrap around
+        with span("sample.call", rows=len(x_init)):
+            if output not in ("float32", "uint8"):
+                raise ValueError(f"unknown output {output!r}; expected 'float32' or 'uint8'")
+            x = torch.as_tensor(x_init, dtype=torch.float32)
+            B = x.shape[0]
+            labels = torch.as_tensor(labels).to(torch.int64)
+            scales = torch.as_tensor(cfg_scales, dtype=torch.float32).reshape(B)
+            if noise is not None:
+                noise = torch.as_tensor(noise, dtype=torch.float32)
+            if row_generators is not None and len(row_generators) != B:
+                raise ValueError(f"{len(row_generators)} row generators for a batch of {B}")
+            run = dict(sampler=sampler, n_steps=num_inference_steps, eta=eta, output=output)
+            devices = [_indexed(d) for d in (devices or [self.device])]
+            n = len(devices)
+            share = pad_to_multiple(B, n) // n
+            order = torch.arange(share * n) % B  # the padded batch: rows wrap around
 
-        def own(g: torch.Generator, dev: torch.device, pad: bool) -> torch.Generator:
-            # a row's own generator where it can draw (so it advances as
-            # unsharded), else a copy of its state
-            return g if not pad and _indexed(g.device) == dev else _generator_copy(g, dev)
+            def own(g: torch.Generator, dev: torch.device, pad: bool) -> torch.Generator:
+                # a row's own generator where it can draw (so it advances as
+                # unsharded), else a copy of its state
+                return g if not pad and _indexed(g.device) == dev else _generator_copy(g, dev)
 
-        shards = []
-        for k, dev in enumerate(devices):
-            rows = order[k * share:(k + 1) * share]
-            gens = None
-            if row_generators is not None:
-                gens = [own(row_generators[int(r)], dev, i >= B)
-                        for i, r in zip(range(k * share, (k + 1) * share), rows)]
-            draw = None
-            if generator is not None:
-                g = own(generator, dev, k > 0)
+            shards = []
+            for k, dev in enumerate(devices):
+                rows = order[k * share:(k + 1) * share]
+                gens = None
+                if row_generators is not None:
+                    gens = [own(row_generators[int(r)], dev, i >= B)
+                            for i, r in zip(range(k * share, (k + 1) * share), rows)]
+                draw = None
+                if generator is not None:
+                    g = own(generator, dev, k > 0)
 
-                def draw(i, g=g, dev=dev, rows=rows if n > 1 else None):
-                    return global_row_draw(lambda: torch.randn(x.shape, generator=g, device=dev),
-                                           rows)
-            shards.append((dev, x[rows].to(dev), labels[rows].to(dev), scales[rows].to(dev),
-                           None if noise is None else noise[:, rows].to(dev), gens, draw))
+                    def draw(i, g=g, dev=dev, rows=rows if n > 1 else None):
+                        return global_row_draw(
+                            lambda: torch.randn(x.shape, generator=g, device=dev), rows)
+                shards.append((dev, x[rows].to(dev), labels[rows].to(dev), scales[rows].to(dev),
+                               None if noise is None else noise[:, rows].to(dev), gens, draw))
 
-        def work(dev: torch.device) -> dict[int, torch.Tensor]:
-            # one thread a device runs that device's shards in turn
-            with torch.inference_mode(), (torch.cuda.device(dev) if dev.type == "cuda"
-                                          else contextlib.nullcontext()):
-                return {k: self._sample(*shards[k], progress=progress and k == 0, **run)
-                        for k in range(n) if devices[k] == dev}
+            def work(dev: torch.device) -> dict[int, torch.Tensor]:
+                # one thread a device runs that device's shards in turn
+                with torch.inference_mode(), (torch.cuda.device(dev) if dev.type == "cuda"
+                                              else contextlib.nullcontext()):
+                    return {k: self._sample(*shards[k], progress=progress and k == 0, **run)
+                            for k in range(n) if devices[k] == dev}
 
-        distinct = list(dict.fromkeys(devices))
-        ctx = [contextvars.copy_context() for _ in distinct]  # the caller's site log
-        outs: dict[int, torch.Tensor] = {}
-        with ThreadPoolExecutor(max_workers=len(distinct)) as pool:
-            futures = [pool.submit(c.run, work, dev) for c, dev in zip(ctx, distinct)]
-            for f in futures:
-                outs.update(f.result())
-        return torch.cat([outs[k].to(self.device) for k in range(n)])[:B]
+            distinct = list(dict.fromkeys(devices))
+            ctx = [contextvars.copy_context() for _ in distinct]  # the caller's site log
+            outs: dict[int, torch.Tensor] = {}
+            with ThreadPoolExecutor(max_workers=len(distinct)) as pool:
+                futures = [pool.submit(c.run, work, dev) for c, dev in zip(ctx, distinct)]
+                for f in futures:
+                    outs.update(f.result())
+            return torch.cat([outs[k].to(self.device) for k in range(n)])[:B]
 
     def _sample(self, dev: torch.device, x, labels, scales, noise, row_generators, draw,
                 sampler: str, n_steps: int | None, eta: float, output: str,
@@ -241,25 +243,30 @@ class DiffusionPipeline:
 
         if sampler == "ddpm":
             for i, t in enumerate(steps(range(sched.num_steps - 1, -1, -1))):
-                x, _ = S.ddpm_step(sched, x, eps_fn(x, t), tvec(t), step_noise(i))
+                with span("sample.step"):
+                    x, _ = S.ddpm_step(sched, x, eps_fn(x, t), tvec(t), step_noise(i))
         elif sampler in ("ddim", "dpm"):
             n = n_steps or (20 if sampler == "dpm" else 50)
             ts = S.make_timesteps(sched.num_steps, n).tolist()
             pairs = list(zip(ts, ts[1:] + [-1]))
             if sampler == "ddim":
                 for i, (t, t_prev) in enumerate(steps(pairs)):
-                    z = step_noise(i) if eta else torch.zeros_like(x)
-                    x, _ = S.ddim_step(sched, x, eps_fn(x, t), tvec(t), tvec(t_prev), z, eta)
+                    with span("sample.step"):
+                        z = step_noise(i) if eta else torch.zeros_like(x)
+                        x, _ = S.ddim_step(sched, x, eps_fn(x, t), tvec(t), tvec(t_prev), z,
+                                           eta)
             else:
                 x0_prev, h_prev = torch.zeros_like(x), -1.0
                 for t, t_prev in steps(pairs):
-                    x, x0_prev, h_prev = S.dpmpp_2m_step(
-                        sched, x, eps_fn(x, t), tvec(t), tvec(t_prev), x0_prev, h_prev)
+                    with span("sample.step"):
+                        x, x0_prev, h_prev = S.dpmpp_2m_step(
+                            sched, x, eps_fn(x, t), tvec(t), tvec(t_prev), x0_prev, h_prev)
         else:
             raise ValueError(f"unknown sampler {sampler!r}")
 
-        imgs = vae.decode(x, quantize=self.vae_arch.bottleneck == "vq")
-        return to_uint8(imgs) if output == "uint8" else imgs.float()
+        with span("sample.decode"):
+            imgs = vae.decode(x, quantize=self.vae_arch.bottleneck == "vq")
+            return to_uint8(imgs) if output == "uint8" else imgs.float()
 
     def sample(self, cfg_scales: Sequence[float] | float, num_images: int = 10,
                seed: int | None = None, sampler: str = "ddpm",

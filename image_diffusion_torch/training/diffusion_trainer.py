@@ -52,7 +52,7 @@ from ..core.logging import BasicLogger
 from ..core.metrics import MetricHolder
 from ..core.plotting import plot_cfg_grid, pyplot
 from ..core.preemption import PreemptionGuard
-from ..core.profiling import StepTimer
+from ..core.profiling import StepTimer, span
 from ..core.progress import progress
 from ..core.rng import epoch_seed, numpy_seed, root_seed, step_generator
 from ..models import build_unet
@@ -162,15 +162,16 @@ class Optimizer:
 
     def step(self) -> torch.Tensor:
         """Clip and apply the gradients; -> their global norm before the clip."""
-        grads = self.grads()
-        norm = self.grad_norm(grads)
-        if self.clip_grad is not None:
-            clip_by_global_norm_(grads, norm, self.clip_grad)
-        for group in self.adam.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.adam.step()
-        self.count += 1
-        return norm
+        with span("optimizer"):
+            grads = self.grads()
+            norm = self.grad_norm(grads)
+            if self.clip_grad is not None:
+                clip_by_global_norm_(grads, norm, self.clip_grad)
+            for group in self.adam.param_groups:
+                group["lr"] = self.schedule(self.count)
+            self.adam.step()
+            self.count += 1
+            return norm
 
     def moments(self) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
         """Adam's (first, second) moments per parameter, zero before the
@@ -250,6 +251,10 @@ def make_train_step(sched: S.Schedule, cond_drop_prob: float, reparametrize: boo
     shard's group before the clip."""
 
     def train_step(state: TrainState, x: torch.Tensor, c: torch.Tensor, draws) -> dict:
+        with span("train.step", rows=x.shape[0]):
+            return step(state, x, c, draws)
+
+    def step(state: TrainState, x: torch.Tensor, c: torch.Tensor, draws) -> dict:
         if isinstance(draws, torch.Generator):
             gen, world = draws, 1 if shard is None else shard.world
             shape = (x.shape[0] * world, *x.shape[1:])
@@ -269,11 +274,13 @@ def make_train_step(sched: S.Schedule, cond_drop_prob: float, reparametrize: boo
         with torch.enable_grad():
             for i in range(a):
                 rows = slice(i * m, (i + 1) * m)
-                eps_hat = state.unet(x_noise[rows], draws.t[rows], c[rows], mask[rows])
-                loss = torch.mean((eps_hat.float() - draws.noise[rows]) ** 2)
+                with span("train.forward"):
+                    eps_hat = state.unet(x_noise[rows], draws.t[rows], c[rows], mask[rows])
+                    loss = torch.mean((eps_hat.float() - draws.noise[rows]) ** 2)
                 if debug_nans:
                     check_finite({"unet/loss": loss})
-                loss.backward()
+                with span("train.backward"):
+                    loss.backward()
                 total = loss.detach() if i == 0 else total + loss.detach()
         if a > 1:
             total = total / a

@@ -83,7 +83,7 @@ from ..core.logging import BasicLogger
 from ..core.metrics import MetricHolder
 from ..core.plotting import plot_reconstructions, pyplot
 from ..core.preemption import PreemptionGuard
-from ..core.profiling import StepTimer
+from ..core.profiling import StepTimer, span
 from ..core.progress import progress
 from ..core.rng import epoch_seed, eval_generator, numpy_seed, root_seed, step_generator
 from ..models import build_discriminator, build_vae
@@ -176,6 +176,10 @@ def make_vae_train_step(cfg: VAEConfig, percept_fn: Callable | None = None,
         return torch.clamp(x_hat.float(), -1.0, 1.0), prior, perplexity
 
     def train_step(state: VAETrainState, x_u8: torch.Tensor, draws, disc_active: bool) -> dict:
+        with span("vae.step", rows=x_u8.shape[0]):
+            return step(state, x_u8, draws, disc_active)
+
+    def step(state: VAETrainState, x_u8: torch.Tensor, draws, disc_active: bool) -> dict:
         if isinstance(draws, torch.Generator):
             gen, world = draws, 1 if shard is None else shard.world
             batch = x_u8.shape[0] * world
@@ -192,62 +196,68 @@ def make_vae_train_step(cfg: VAEConfig, percept_fn: Callable | None = None,
         # VQ at accum 1 updates the codebook in this forward, after its lookup
         ema_stats = state.vae.codebook.empty_stats() if is_vq and accum > 1 else None
         if accum == 1:
-            with torch.enable_grad():
+            with torch.enable_grad(), span("vae.forward"):
                 forward = vae_forward(state.vae, x, draws.noise, train=True)
 
         if disc_active:  # phase 1: the discriminator, on detached fakes then reals
-            d_params, acc = state.disc_opt.params, [None] * len(state.disc_opt.params)
-            for xm, nm in micro:
-                if accum == 1:
-                    x_hat = forward[0].detach()
-                else:
-                    with torch.no_grad():
-                        x_hat = vae_forward(state.vae, xm, nm)[0]
-                with torch.enable_grad():
-                    out_fake = state.disc(x_hat).float()
-                    out_real = state.disc(xm).float()
-                    d_loss = d_loss_fn(out_fake, out_real)
-                    if debug_nans:
-                        check_finite({"gan/d_loss": d_loss})
-                    _add_grads(acc, tc.disc_weight * d_loss, d_params)
-                add({"gan/d_loss": d_loss,
-                     "gan/fake_acc": (torch.sigmoid(out_fake.detach()) < 0.5).float().mean(),
-                     "gan/real_acc": (torch.sigmoid(out_real.detach()) >= 0.5).float().mean()})
-            _set_grads(d_params, acc, accum)
-            if shard is not None:
-                all_reduce_mean_(state.disc_opt.grads(), shard.group)
-            disc_grad = state.disc_opt.step()
+            with span("vae.disc_phase"):
+                d_params, acc = state.disc_opt.params, [None] * len(state.disc_opt.params)
+                for xm, nm in micro:
+                    if accum == 1:
+                        x_hat = forward[0].detach()
+                    else:
+                        with torch.no_grad():
+                            x_hat = vae_forward(state.vae, xm, nm)[0]
+                    with torch.enable_grad():
+                        out_fake = state.disc(x_hat).float()
+                        out_real = state.disc(xm).float()
+                        d_loss = d_loss_fn(out_fake, out_real)
+                        if debug_nans:
+                            check_finite({"gan/d_loss": d_loss})
+                        _add_grads(acc, tc.disc_weight * d_loss, d_params)
+                    add({"gan/d_loss": d_loss,
+                         "gan/fake_acc": (torch.sigmoid(out_fake.detach()) < 0.5).float().mean(),
+                         "gan/real_acc": (torch.sigmoid(out_real.detach()) >= 0.5).float().mean()})
+                _set_grads(d_params, acc, accum)
+                if shard is not None:
+                    all_reduce_mean_(state.disc_opt.grads(), shard.group)
+                disc_grad = state.disc_opt.step()
 
         # phase 2: the VAE, through the updated discriminator
-        v_params, acc = state.vae_opt.params, [None] * len(state.vae_opt.params)
-        for xm, nm in micro:
-            with torch.enable_grad():
-                if accum == 1:
-                    x_hat, prior, perplexity = forward
-                else:
-                    x_hat, prior, perplexity = vae_forward(state.vae, xm, nm, train=True,
-                                                           ema_stats=ema_stats)
-                rl = recon_loss(xm, x_hat)
-                pl = percept_fn(xm, x_hat) if percept_fn is not None else x_hat.new_zeros(())
-                loss = pl * tc.percept_weight + rl * tc.recon_weight + prior * tc.prior_weight
-                if disc_active:
-                    g_loss = g_loss_fn(state.disc(x_hat).float())
-                    loss = loss + g_loss * tc.disc_weight
-                    add({"gan/g_loss": g_loss})
-                if debug_nans:
-                    check_finite({"vae/loss": loss})
-                _add_grads(acc, loss, v_params)
-            add({"vae/prior_loss": prior, "vae/recon_loss": rl, "vae/percept_loss": pl})
-            if is_vq:
-                add({"vae/perplexity": perplexity})
-        _set_grads(v_params, acc, accum)
-        if shard is not None:
-            all_reduce_mean_(state.vae_opt.grads(), shard.group)
-        metrics = {k: v / accum for k, v in sums.items()}
-        if shard is not None:  # the perplexity is the global histogram's already
-            all_reduce_mean_([v for k, v in metrics.items() if k != "vae/perplexity"],
-                             shard.group)
-        metrics["vae/vae_grad"] = state.vae_opt.step()
+        with span("vae.gen_phase"):
+            v_params, acc = state.vae_opt.params, [None] * len(state.vae_opt.params)
+            for xm, nm in micro:
+                with torch.enable_grad():
+                    if accum == 1:
+                        x_hat, prior, perplexity = forward
+                    else:
+                        x_hat, prior, perplexity = vae_forward(state.vae, xm, nm, train=True,
+                                                               ema_stats=ema_stats)
+                    rl = recon_loss(xm, x_hat)
+                    if percept_fn is not None:
+                        with span("lpips"):
+                            pl = percept_fn(xm, x_hat)
+                    else:
+                        pl = x_hat.new_zeros(())
+                    loss = pl * tc.percept_weight + rl * tc.recon_weight + prior * tc.prior_weight
+                    if disc_active:
+                        g_loss = g_loss_fn(state.disc(x_hat).float())
+                        loss = loss + g_loss * tc.disc_weight
+                        add({"gan/g_loss": g_loss})
+                    if debug_nans:
+                        check_finite({"vae/loss": loss})
+                    _add_grads(acc, loss, v_params)
+                add({"vae/prior_loss": prior, "vae/recon_loss": rl, "vae/percept_loss": pl})
+                if is_vq:
+                    add({"vae/perplexity": perplexity})
+            _set_grads(v_params, acc, accum)
+            if shard is not None:
+                all_reduce_mean_(state.vae_opt.grads(), shard.group)
+            metrics = {k: v / accum for k, v in sums.items()}
+            if shard is not None:  # the perplexity is the global histogram's already
+                all_reduce_mean_([v for k, v in metrics.items() if k != "vae/perplexity"],
+                                 shard.group)
+            metrics["vae/vae_grad"] = state.vae_opt.step()
         if disc_active:
             metrics["gan/disc_grad"] = disc_grad
         if ema_stats is not None:
