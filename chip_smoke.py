@@ -36,6 +36,20 @@ Phases, one status line each; any failure exits non-zero:
      the gradient through `FlashAttention` against autograd of the plain
      version, and the device time of that gradient (the einsum path's
      autograd, which has no kernel);
+  3d. the GroupNorm kernel pair at every (C, H*W) the full-width UNet and
+     VAE normalise (read by hooks on their forwards, which also count 43,
+     22 and 18 forward launches a UNet forward, decode and encode), at the
+     rows the benchmark's cells give them (forward: UNet 510 and 512, VAE
+     48 and 255; backward: 512 and 48): forward with SiLU on and off
+     against the fp32 formula on the same bf16 input, and the backward's dx
+     against autograd of it, at the plain bf16 path's largest error plus
+     one ulp, dweight and dbias at 1e-3; device times of the pair, the
+     plain formula and F.group_norm (+ F.silu), the function's byte floor
+     (4 B an element forward, 6 backward) and the design's (6, 10), also
+     summed over each cell's model call.  From phase 4 on, the pair's
+     launches are counted on each main path (phases 4-10 and 12) and held
+     to 43 a UNet forward, 22 a decode, 18 an encode and one backward a
+     norm of a train step;
   4. the full-width UNet forward at batch 54 in bf16: kernel launches per
      forward, its device time by kernel (torch.profiler), and two rows
      against the same rows run on the CPU;
@@ -317,7 +331,24 @@ SHARD_GRID_REL = 0.5
 # (as dpm-20's), not by a relative L2
 SHARD_DDIM_STEPS = 50
 # csrc/<name>.cu of every kernel the paths run
-KERNEL_SOURCES = ["packed_attention", "packed_attention_bwd", "flash_attention"]
+KERNEL_SOURCES = ["packed_attention", "packed_attention_bwd", "flash_attention", "group_norm"]
+# GroupNorm calls of one full-width UNet forward, one decode and one encode
+# (the KL and the VQ VAE alike); a call launches the forward kernels once,
+# and with grad the backward kernels once
+UNET_NORMS, DECODE_NORMS, ENCODE_NORMS = 43, 22, 18
+NORM_GROUPS = 32
+# phase 3d: the rows the benchmark's cells hand the GroupNorm kernels: the
+# sampling cell's UNet calls (255 images x 2) and decode (255), the UNet
+# training cell's batch (512) and the stage-1 cell's (48)
+NORM_FWD_ROWS = {"unet": (510, 512), "vae": (48, 255)}
+NORM_BWD_ROWS = {"unet": 512, "vae": 48}
+# bf16 bytes an element: the function's floor (forward: read x, write y;
+# backward: read x and dy, write dx) and the kernels' two-pass design's
+# (forward: x read twice; backward: x and dy read twice)
+NORM_FWD_BYTES, NORM_FWD_DESIGN_BYTES = 4, 6
+NORM_BWD_BYTES, NORM_BWD_DESIGN_BYTES = 6, 10
+# the GroupNorm kernels' (forward, backward) launches, by main path
+NORM_LAUNCHES: dict[str, tuple[int, int]] = {}
 # phase 15: the end-to-end quality tool at full width and reduced depth
 # (1,200 images; 2 epochs of 25 steps of 48 in each stage; 270 dev images;
 # 90 generated images for the generative FID in 3 calls of 30)
@@ -628,6 +659,266 @@ def phase_flash_kernel(torch, F, attn, clock_hz):
     return batches
 
 
+def reset_norm_launches() -> None:
+    from image_diffusion_torch.ops import group_norm, group_norm_bwd
+
+    group_norm.launches = group_norm_bwd.launches = 0
+
+
+def check_norm_launches(path: str, forward: int, backward: int) -> None:
+    """The GroupNorm kernels' launches since `reset_norm_launches`, kept in
+    NORM_LAUNCHES under `path`, against `forward` and `backward`."""
+    from image_diffusion_torch.ops import group_norm, group_norm_bwd
+
+    got = NORM_LAUNCHES[path] = (group_norm.launches, group_norm_bwd.launches)
+    log(f"{path}: GroupNorm kernel launches {got[0]} forward, {got[1]} backward (expected "
+        f"{forward} and {backward})")
+    if got != (forward, backward):
+        raise AssertionError(f"{path}: GroupNorm kernel launches {got}, expected "
+                             f"{(forward, backward)}")
+
+
+def norm_sites(torch) -> dict:
+    """{"unet" | "decode" | "encode": {(C, H*W): [silu of each call]}} of
+    one full-width UNet forward, KL decode and KL encode in bf16 on the
+    card, read by forward hooks on every GroupNorm; each run launches the
+    forward kernels once a call (UNET_NORMS, DECODE_NORMS, ENCODE_NORMS)."""
+    from image_diffusion_torch.core.config import UNetArch, VAEArch
+    from image_diffusion_torch.models import build_unet, build_vae
+    from image_diffusion_torch.models.layers import GroupNorm
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    unet = build_unet(UNetArch(), torch.bfloat16, "cuda")
+    vae = build_vae(VAEArch(), torch.bfloat16, "cuda")
+    calls = []
+
+    def hook(module, inputs, output):
+        _, C, H, W = inputs[0].shape
+        calls.append((C, H * W, module.silu))
+
+    handles = [m.register_forward_hook(hook) for model in (unet, vae) for m in model.modules()
+               if isinstance(m, GroupNorm)]
+    runs = {"unet": (UNET_NORMS, lambda: unet(torch.randn(2, 32, 32, 3, generator=g, device="cuda"),
+                                               torch.tensor([3, 700], device="cuda"),
+                                               torch.tensor([0, 2], device="cuda"))),
+            "decode": (DECODE_NORMS, lambda: vae.decode(
+                torch.randn(2, 32, 32, 3, generator=g, device="cuda"))),
+            "encode": (ENCODE_NORMS, lambda: vae.encode(
+                torch.rand(2, 128, 128, 3, generator=g, device="cuda") * 2 - 1))}
+    sites = {}
+    for name, (expected, run) in runs.items():
+        calls.clear()
+        reset_norm_launches()
+        with torch.inference_mode():
+            run()
+        torch.cuda.synchronize()
+        check_norm_launches(f"phase 3d full-width {name}, batch 2", expected, 0)
+        if len(calls) != expected:
+            raise AssertionError(f"{name}: {len(calls)} GroupNorm calls, expected {expected}")
+        for C, HW, silu in calls:
+            sites.setdefault(name, {}).setdefault((C, HW), []).append(silu)
+    for h in handles:
+        h.remove()
+    return sites
+
+
+def _norm_inputs(torch, B, C, HW, seed):
+    """x bf16 (B, C, H, W) in channels_last memory, fp32 weight and bias,
+    dy bf16: the card test's draws, made on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    H = int(HW ** 0.5)
+    cl = torch.channels_last
+    x = (torch.randn(B, C, H, HW // H, generator=g, device="cuda") * 2.0).to(torch.bfloat16)
+    w = torch.rand(C, generator=g, device="cuda") + 0.5
+    b = torch.randn(C, generator=g, device="cuda") * 0.5
+    dy = torch.randn(B, C, H, HW // H, generator=g, device="cuda").to(torch.bfloat16)
+    return x.contiguous(memory_format=cl), w, b, dy.contiguous(memory_format=cl)
+
+
+def _bf16_ulp(ref) -> float:
+    """One bf16 ulp at the largest magnitude of `ref`."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)
+
+
+def _max_err(a, ref) -> float:
+    return float((a.float() - ref).abs().max())
+
+
+def _norm_forward(torch, F, gn, B, C, HW, silu):
+    """One forward row of phase 3d: the kernels against the fp32 formula on
+    the same bf16 input, SiLU off and on, at the card test's bar (the plain
+    bf16 path's largest error plus one ulp); then times of the kernels
+    (`silu` as the model's sites at this shape), the plain formula and
+    F.group_norm (+ F.silu) on the same tensor (weights in bf16, as the
+    library takes them)."""
+    x, w, b, _ = _norm_inputs(torch, B, C, HW, seed=7000 + B + C + HW)
+    errs = {}
+    for act in (False, True):
+        ref = gn.reference_group_norm(x.float(), w, b, NORM_GROUPS, act)
+        plain = gn.reference_group_norm(x, w, b, NORM_GROUPS, act)
+        before = gn.group_norm.launches
+        with torch.no_grad():
+            y = gn.group_norm(x, w, b, NORM_GROUPS, act)
+        torch.cuda.synchronize()
+        errs[act] = (_max_err(y, ref), _max_err(plain, ref), _bf16_ulp(ref))
+        if not (gn.group_norm.launches == before + 1 and y.dtype == torch.bfloat16
+                and y.is_contiguous(memory_format=torch.channels_last)):
+            raise AssertionError(f"group_norm at B={B} C={C} HW={HW}: not one launch, or an "
+                                 f"output that is not bf16 channels_last")
+        del ref, plain, y
+    w16, b16 = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    act = F.silu if silu else (lambda t: t)
+    with torch.no_grad():
+        kernel = lambda: gn.group_norm(x, w, b, NORM_GROUPS, silu)  # noqa: E731
+        plain = lambda: gn.reference_group_norm(x, w, b, NORM_GROUPS, silu)  # noqa: E731
+        library = lambda: act(F.group_norm(x, NORM_GROUPS, w16, b16, gn.EPS))  # noqa: E731
+        ms, dev_ms = cuda_ms(kernel, iters=20), device_ms(torch, kernel)
+        plain_ms, plain_dev_ms = cuda_ms(plain, iters=5), device_ms(torch, plain)
+        lib_ms, lib_dev_ms = cuda_ms(library, iters=10), device_ms(torch, library)
+    n = B * C * HW
+    row = dict(B=B, C=C, HW=HW, cg=C // NORM_GROUPS, silu=silu,
+               max_abs_err=max(e[0] for e in errs.values()),
+               bar={str(a).lower(): dict(err=e[0], plain_err=e[1], ulp=e[2]) for a, e in errs.items()},
+               ms=ms, device_ms=dev_ms, plain_ms=plain_ms, plain_device_ms=plain_dev_ms,
+               library_ms=lib_ms, library_device_ms=lib_dev_ms,
+               bound_ms=n * NORM_FWD_BYTES / PEAK_BYTES * 1e3,
+               design_bound_ms=n * NORM_FWD_DESIGN_BYTES / PEAK_BYTES * 1e3)
+    log(f"phase 3d group_norm forward B={B} C={C} HW={HW} cg={C // NORM_GROUPS}: max|err| vs "
+        f"fp32 " + ", ".join(f"silu {'on' if a else 'off'} {e[0]:.3e} (plain bf16 {e[1]:.3e} + "
+                             f"ulp {e[2]:.3e})" for a, e in errs.items())
+        + f"; kernel{' +silu' if silu else ''} {ms:.4f} ms ({dev_ms:.4f} ms on the device), plain "
+        f"{plain_ms:.4f} ms ({plain_dev_ms:.4f}), F.group_norm{'+F.silu' if silu else ''} "
+        f"{lib_ms:.4f} ms ({lib_dev_ms:.4f}), bound {row['bound_ms']:.4f} ms "
+        f"({NORM_FWD_BYTES} B/element; the design's {NORM_FWD_DESIGN_BYTES} B: "
+        f"{row['design_bound_ms']:.4f} ms)")
+    if not all(e[0] <= e[1] + e[2] for e in errs.values()):
+        raise AssertionError(f"group_norm at B={B} C={C} HW={HW}: farther from the fp32 formula "
+                             f"than the plain bf16 path plus one ulp")
+    return row
+
+
+def _norm_backward(torch, F, gn, B, C, HW, silu):
+    """One backward row of phase 3d: dx against autograd of the fp32
+    formula at the card test's bar, dweight and dbias at 1e-3 relative L2,
+    one launch each way; then device times of the backward kernels (on the
+    forward operator's mean and rstd), of the plain formula's autograd and
+    of F.group_norm (+ F.silu)'s, each from its retained graph."""
+    from image_diffusion_torch.ops.group_norm import group_norm_fwd
+
+    x, w, b, dy = _norm_inputs(torch, B, C, HW, seed=8000 + B + C + HW)
+    grads = {}
+    for name in ("fp32", "plain", "kernel"):
+        xi = (x.float() if name == "fp32" else x.clone()).requires_grad_()
+        wi, bi = w.clone().requires_grad_(), b.clone().requires_grad_()
+        before = (gn.group_norm.launches, gn.group_norm_bwd.launches)
+        fn = gn.group_norm if name == "kernel" else gn.reference_group_norm
+        y = fn(xi, wi, bi, NORM_GROUPS, silu)
+        y.backward(dy.to(y.dtype))
+        torch.cuda.synchronize()
+        launched = (gn.group_norm.launches - before[0], gn.group_norm_bwd.launches - before[1])
+        if launched != ((1, 1) if name == "kernel" else (0, 0)):
+            raise AssertionError(f"group_norm {name} at B={B} C={C} HW={HW}: launches {launched}")
+        grads[name] = (xi.grad, wi.grad, bi.grad)
+        del xi, wi, bi, y
+    (rx, rw, rb), (px, _, _), (kx, kw, kb) = grads["fp32"], grads["plain"], grads["kernel"]
+    err, plain_err, ulp = _max_err(kx, rx), _max_err(px, rx), _bf16_ulp(rx)
+    dw_rel = float((kw - rw).norm() / rw.norm())
+    db_rel = float((kb - rb).norm() / rb.norm())
+    del grads, rx, px, kx
+    _, mean, rstd = group_norm_fwd(x, w, b, NORM_GROUPS, silu)
+    kernel = lambda: gn.group_norm_bwd(dy, x, w, b, mean, rstd, NORM_GROUPS, silu)  # noqa: E731
+    ms, dev_ms = cuda_ms(kernel, iters=20), device_ms(torch, kernel)
+    act = F.silu if silu else (lambda t: t)
+    timed = {}
+    for name in ("plain", "library"):
+        xi = x.clone().requires_grad_()
+        if name == "plain":
+            wi, bi = w.clone().requires_grad_(), b.clone().requires_grad_()
+            y = gn.reference_group_norm(xi, wi, bi, NORM_GROUPS, silu)
+        else:
+            wi, bi = (t.to(torch.bfloat16).requires_grad_() for t in (w, b))
+            y = act(F.group_norm(xi, NORM_GROUPS, wi, bi, gn.EPS))
+        grad = lambda: torch.autograd.grad(y, (xi, wi, bi), dy, retain_graph=True)  # noqa: E731
+        timed[name] = (cuda_ms(grad, iters=5), device_ms(torch, grad))
+        del xi, wi, bi, y
+    n = B * C * HW
+    row = dict(B=B, C=C, HW=HW, cg=C // NORM_GROUPS, silu=silu, max_abs_err=err,
+               bar=dict(err=err, plain_err=plain_err, ulp=ulp), dweight_rel_l2=dw_rel,
+               dbias_rel_l2=db_rel, ms=ms, device_ms=dev_ms, plain_ms=timed["plain"][0],
+               plain_device_ms=timed["plain"][1], library_ms=timed["library"][0],
+               library_device_ms=timed["library"][1],
+               bound_ms=n * NORM_BWD_BYTES / PEAK_BYTES * 1e3,
+               design_bound_ms=n * NORM_BWD_DESIGN_BYTES / PEAK_BYTES * 1e3)
+    log(f"phase 3d group_norm backward B={B} C={C} HW={HW} cg={C // NORM_GROUPS} silu "
+        f"{'on' if silu else 'off'}: dx max|err| vs autograd of fp32 {err:.3e} (plain bf16 "
+        f"{plain_err:.3e} + ulp {ulp:.3e}), dweight {dw_rel:.3e} dbias {db_rel:.3e} rel L2 "
+        f"(tolerance 1e-3); kernels {ms:.4f} ms ({dev_ms:.4f} ms on the device), plain autograd "
+        f"{timed['plain'][0]:.4f} ms ({timed['plain'][1]:.4f}), F.group_norm"
+        f"{'+F.silu' if silu else ''} autograd {timed['library'][0]:.4f} ms "
+        f"({timed['library'][1]:.4f}), bound {row['bound_ms']:.4f} ms ({NORM_BWD_BYTES} B/element; "
+        f"the design's {NORM_BWD_DESIGN_BYTES} B: {row['design_bound_ms']:.4f} ms)")
+    if not (err <= plain_err + ulp and dw_rel <= 1e-3 and db_rel <= 1e-3):
+        raise AssertionError(f"group_norm backward at B={B} C={C} HW={HW}: dx farther from "
+                             f"autograd of the fp32 formula than the plain bf16 path plus one ulp, "
+                             f"or dweight/dbias off by more than 1e-3")
+    return row
+
+
+NORM_TIMES = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms", "library_device_ms",
+              "bound_ms", "design_bound_ms")
+
+
+def phase_group_norm(torch, F) -> dict:
+    """Phase 3d: the GroupNorm kernels at every (C, H*W) of the full-width
+    UNet and VAE (read from the models' own calls), at the rows the cells
+    hand them: forward at NORM_FWD_ROWS, backward at NORM_BWD_ROWS, with
+    times; the sums over a model call, each shape as often as the model
+    normalises it."""
+    import importlib
+
+    gn = importlib.import_module("image_diffusion_torch.ops.group_norm")
+    sites = norm_sites(torch)
+    shapes = {"unet": sites["unet"], "vae": {}}
+    for part in ("decode", "encode"):
+        for s, silus in sites[part].items():
+            shapes["vae"].setdefault(s, []).extend(silus)
+    fwd, bwd = [], []
+    for model, by_shape in shapes.items():
+        for (C, HW), silus in sorted(by_shape.items()):
+            silu = any(silus)  # the time of the sites' common case; both are held
+            for B in NORM_FWD_ROWS[model]:
+                fwd.append(dict(model=model, **_norm_forward(torch, F, gn, B, C, HW, silu)))
+            bwd.append(dict(model=model, **_norm_backward(torch, F, gn, NORM_BWD_ROWS[model],
+                                                          C, HW, silu)))
+            torch.cuda.empty_cache()
+
+    def per_call(rows, parts, B):
+        """NORM_TIMES summed over the norms of `parts` at B rows."""
+        at = {(r["C"], r["HW"]): r for r in rows if r["B"] == B}
+        calls = [(s, len(silus)) for p in parts for s, silus in sites[p].items()]
+        return {k: sum(n * at[s][k] for s, n in calls) for k in NORM_TIMES}
+
+    totals = {
+        "sample_unet_forward_510": per_call(fwd, ["unet"], 510),
+        "sample_decode_255": per_call(fwd, ["decode"], 255),
+        "train_unet_forward_512": per_call(fwd, ["unet"], 512),
+        "train_unet_backward_512": per_call(bwd, ["unet"], 512),
+        "train_vae_forward_48": per_call(fwd, ["encode", "decode"], 48),
+        "train_vae_backward_48": per_call(bwd, ["encode", "decode"], 48),
+    }
+    for name, t in totals.items():
+        log(f"phase 3d group_norm {name.replace('_', ' ')}: kernels {t['ms']:.4f} ms "
+            f"({t['device_ms']:.4f} ms on the device, {t['bound_ms'] / t['device_ms']:.1%} of the "
+            f"function's byte floor {t['bound_ms']:.4f} ms, {t['design_bound_ms'] / t['device_ms']:.1%} "
+            f"of the design's {t['design_bound_ms']:.4f}); plain {t['plain_ms']:.4f} ms "
+            f"({t['plain_device_ms']:.4f} on the device); F.group_norm(+F.silu) "
+            f"{t['library_ms']:.4f} ms ({t['library_device_ms']:.4f} on the device)")
+    return dict(forward=fwd, backward=bwd, totals=totals,
+                calls={k: {f"{C}x{HW}": len(v) for (C, HW), v in s.items()} for k, s in sites.items()})
+
+
 def _random_lpips_file(torch, path: str) -> None:
     """Random LPIPS weights in torchvision's VGG16 layout (He-scaled convs,
     positive lin weights), saved as a torch state dict."""
@@ -721,6 +1012,7 @@ def phase_train(torch, np, attn, unet_state):
                                    os.path.join(tmp, "labels.npy"))
         args = ["--config", config, "--experiment-name", "smoke", "--no-mlflow"]
         attn.packed_attention.launches = attn.packed_attention_bwd.launches = 0
+        reset_norm_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         trainer = train_main(args)
@@ -728,6 +1020,8 @@ def phase_train(torch, np, attn, unet_state):
         run_s = time.perf_counter() - t0
         launches = {"forward": attn.packed_attention.launches,
                     "backward": attn.packed_attention_bwd.launches}
+        check_norm_launches("phase 6 train_diffusion", UNET_NORMS * TRAIN_STEPS,
+                            UNET_NORMS * TRAIN_STEPS)
         with open(os.path.join(tmp, "logs", "smoke_metrics.csv")) as f:
             rows = list(csv.DictReader(f))
         flushes = {}
@@ -1102,6 +1396,7 @@ def _stage1_cli_run(torch, np, attn, tmp, phase, config_path, run, lpips_path):
     args = ["--config", config, "--experiment-name", run, "--no-mlflow",
             "--lpips-weights", lpips_path]
     attn.flash_attention.launches = 0
+    reset_norm_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer = train_main(args)
@@ -1109,6 +1404,9 @@ def _stage1_cli_run(torch, np, attn, tmp, phase, config_path, run, lpips_path):
     run_s = time.perf_counter() - t0
     run_launches = attn.flash_attention.launches
     dev_batches = -(-n_dev // B_TRAIN)
+    vae_norms = ENCODE_NORMS + DECODE_NORMS  # a step's forward and a dev batch's
+    check_norm_launches(f"{phase} train_vae ({cfg.arch.bottleneck})",
+                        vae_norms * (VAE_TRAIN_STEPS + dev_batches), vae_norms * VAE_TRAIN_STEPS)
     with open(os.path.join(tmp, "logs", f"{run}_metrics.csv")) as f:
         rows = list(csv.DictReader(f))
     flushes, dev = {}, {}
@@ -1408,12 +1706,14 @@ def phase_clis(torch, np, attn, vae_ckpt: str, images_path: str, tmp: str):
     n = images.shape[0]
     batches = -(-n // B_ENCODE)
     attn.flash_attention.launches = 0
+    reset_norm_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     prepare_dataset.main(["diffusion", "--diffusion-images", images_path, "--vae-checkpoint",
                           vae_ckpt, "--out", lat_dir, "--labels-mode", "random"])
     prep_s = time.perf_counter() - t0
     prep_flash = attn.flash_attention.launches
+    check_norm_launches("phase 8 prepare_dataset", ENCODE_NORMS * batches, 0)
     latents = np.load(os.path.join(lat_dir, "diffusion_dataset.npy"))
     labels = np.load(os.path.join(lat_dir, "diffusion_labels.npy"))
     # the encode alone, on the same kernels: the same bytes
@@ -1501,13 +1801,15 @@ def phase_clis(torch, np, attn, vae_ckpt: str, images_path: str, tmp: str):
     for name, extra in (("ddpm", []), ("dpm", ["--sampler", "dpm"])):
         args = sample_grid.parse_args([bundle, "--out", png, *extra])
         attn.packed_attention.launches = attn.flash_attention.launches = 0
+        reset_norm_launches()
         grid_pipe, scales, imgs, secs = sample_grid.sample(args)
         launches = (attn.packed_attention.launches, attn.flash_attention.launches)
+        n_steps = 1000 if name == "ddpm" else 20
+        check_norm_launches(f"phase 8 sample_grid {name}", n_steps * UNET_NORMS + DECODE_NORMS, 0)
         t0 = time.perf_counter()
         ref = grid_pipe.sample(scales, seed=args.seed, sampler=args.sampler).cpu()
         ref_s = time.perf_counter() - t0
         diff = float((imgs - ref).abs().max())
-        n_steps = 1000 if name == "ddpm" else 20
         out[name] = dict(seconds=secs, pipe_seconds=ref_s, launches=launches, max_diff=diff)
         log(f"phase 8 sample_grid {name}-{n_steps}: {tuple(imgs.shape)} {imgs.dtype} in {secs:.2f} s "
             f"({imgs.shape[0] / secs:.3f} img/s, the CLI's log line); {launches[0]} packed and "
@@ -1577,8 +1879,12 @@ def phase_remat_preview(torch, np, attn, tmp, vae_ckpt, clis):
         base_mb = torch.cuda.memory_allocated() / 2**20
         torch.cuda.reset_peak_memory_stats()
         attn.packed_attention.launches = attn.packed_attention_bwd.launches = 0
+        reset_norm_launches()
         step(st, x, c, draws)
         torch.cuda.synchronize()
+        # under remat the 42 norms inside the blocks run their forward again
+        check_norm_launches(f"phase 10 remat {policy or 'none'} step",
+                            UNET_NORMS if policy is None else 2 * UNET_NORMS - 1, UNET_NORMS)
         out = dict(base_mb=base_mb, peak_mb=torch.cuda.max_memory_allocated() / 2**20,
                    launches=(attn.packed_attention.launches, attn.packed_attention_bwd.launches),
                    grad=torch.cat([p.grad.flatten() for p in st.optimizer.params]).float().cpu())
@@ -1961,9 +2267,11 @@ def phase_serve(torch, np, attn, tmp, vae_state, unet_state):
     scales = [float(1 + i) for i in range(SERVE_BATCH)]
     torch.cuda.synchronize()
     attn.packed_attention.launches = attn.flash_attention.launches = 0
+    reset_norm_launches()
     imgs = eng._run(seeds, labels, scales)
     torch.cuda.synchronize()
     launches = (attn.packed_attention.launches, attn.flash_attention.launches)
+    check_norm_launches("phase 12 served dpm-20 batch", 20 * UNET_NORMS + DECODE_NORMS, 0)
     gens = eng._row_generators(seeds)
     with torch.inference_mode():
         x_init = torch.stack([torch.randn(eng.pipe.latent_shape, generator=g, device="cuda")
@@ -1985,9 +2293,11 @@ def phase_serve(torch, np, attn, tmp, vae_state, unet_state):
     eng_ddim = engine(sampler="ddim", steps=50, eta=1.0)
     pad = SERVE_BATCH - 1
     attn.packed_attention.launches = attn.flash_attention.launches = 0
+    reset_norm_launches()
     alone = eng_ddim._run([77] + [0] * pad, [2] + [0] * pad, [4.0] + [1.0] * pad)
     torch.cuda.synchronize()
     ddim_launches = (attn.packed_attention.launches, attn.flash_attention.launches)
+    check_norm_launches("phase 12 served ddim-50 batch, eta 1", 50 * UNET_NORMS + DECODE_NORMS, 0)
     co_seeds, co_labels = [5, 6, 7, 8, 9, 77, 10, 11], [0, 1, 2, 0, 1, 2, 0, 1]
     co_scales = [2.0, 3.0, 5.0, 6.0, 7.0, 4.0, 8.0, 9.0]
     cobatched = eng_ddim._run(co_seeds, co_labels, co_scales)
@@ -2873,8 +3183,8 @@ def main() -> int:
                                   check=True, timeout=60).stdout.strip().splitlines()[-1]
     t0 = time.perf_counter()
     build(KERNEL_SOURCES)
-    log(f"phase 2 build: packed_attention.cu, packed_attention_bwd.cu and flash_attention.cu "
-        f"(all with packed_common.cuh) in "
+    log(f"phase 2 build: packed_attention.cu, packed_attention_bwd.cu, flash_attention.cu "
+        f"and group_norm.cu (all with packed_common.cuh) in "
         f"{time.perf_counter() - t0:.1f} s ({nvcc_version})")
     for source in KERNEL_SOURCES:
         if source not in BUILD_OUTPUT:
@@ -2896,6 +3206,7 @@ def main() -> int:
     bwd_sites = phase_bwd_kernels(torch, F, attn, clock_hz, B_TRAIN)
     rank_bwd_sites = phase_bwd_kernels(torch, F, attn, clock_hz, B_RANK)
     flash_batches = phase_flash_kernel(torch, F, attn, clock_hz)
+    norms = phase_group_norm(torch, F)
 
     # phase 4: full-width UNet forward on the card, two rows against the CPU
     gen = torch.Generator().manual_seed(0)
@@ -2910,10 +3221,12 @@ def main() -> int:
     args = [a.cuda() for a in (x, t, ctx, mask)]
     with torch.inference_mode():
         attn.packed_attention.launches = 0
+        reset_norm_launches()
         with ops.record_sites() as log_sites:
             out = unet(*args)
         torch.cuda.synchronize()
         launches = attn.packed_attention.launches
+        check_norm_launches("phase 4 unet forward", UNET_NORMS, 0)
         fwd_ms = cuda_ms(lambda: unet(*args), iters=10)
         prof_ms, prof_kernels, prof_wall = device_profile(torch, lambda: unet(*args))
         rows = [0, B_GRID - 1]
@@ -2952,11 +3265,13 @@ def main() -> int:
 
     scales = list(range(1, 10))
     attn.packed_attention.launches = attn.flash_attention.launches = 0
+    reset_norm_launches()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     imgs = pipe.sample(scales, seed=0, sampler="ddpm")
     torch.cuda.synchronize()
     ddpm_s = time.perf_counter() - t1
+    check_norm_launches("phase 5 ddpm-1000 grid", 1000 * UNET_NORMS + DECODE_NORMS, 0)
     main_launches = attn.packed_attention.launches
     grid_flash = attn.flash_attention.launches
     n_imgs = imgs.shape[0]
@@ -2970,10 +3285,12 @@ def main() -> int:
                              f"expected 14 x 1000 and 1")
 
     attn.packed_attention.launches = attn.flash_attention.launches = 0
+    reset_norm_launches()
     t1 = time.perf_counter()
     u8 = pipe.sample(scales, seed=0, sampler="dpm", num_inference_steps=20, output="uint8")
     torch.cuda.synchronize()
     dpm_s = time.perf_counter() - t1
+    check_norm_launches("phase 5 dpm-20 grid", 20 * UNET_NORMS + DECODE_NORMS, 0)
     dpm_launches = attn.packed_attention.launches
     dpm_flash = attn.flash_attention.launches
     log(f"phase 5 dpm-20 grid: {tuple(u8.shape)} {u8.dtype} in {dpm_s:.3f} s "
@@ -3177,6 +3494,38 @@ def main() -> int:
         "per": "one call at the VAE's attention site, B=48 (the training batch), H=1, N=1024, D=384; "
                "einsum_backward_device_ms: one FlashAttention backward (autograd of the einsum path)",
         "batches": flash_batches,
+    }, {
+        "name": "group_norm",
+        "route": "cuda",
+        "source": "image_diffusion_torch/ops/csrc/group_norm.cu",
+        "replaces": "no TPU kernel: the plain formula (ops.reference_group_norm), then nn.SiLU",
+        "launches": NORM_LAUNCHES["phase 5 ddpm-1000 grid"][0],
+        "launches_by_path": {k: v[0] for k, v in NORM_LAUNCHES.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in norms["forward"]),
+        **norms["totals"]["sample_unet_forward_510"],
+        "bound_by": "bytes",
+        "per": "the 43 norms of one UNet call of the sampling cell (510 rows); bound_ms: the "
+               f"function's {NORM_FWD_BYTES} B an element, design_bound_ms: the two-pass design's "
+               f"{NORM_FWD_DESIGN_BYTES} B; library: F.group_norm (+ F.silu) on the same tensor; "
+               "totals: the norms of each cell's model call; sites: each shape at each row count",
+        "totals": {k: v for k, v in norms["totals"].items() if "forward" in k or "decode" in k},
+        "calls": norms["calls"],
+        "sites": norms["forward"],
+    }, {
+        "name": "group_norm_bwd",
+        "route": "cuda",
+        "source": "image_diffusion_torch/ops/csrc/group_norm.cu",
+        "replaces": "no TPU kernel: autograd of the plain formula and nn.SiLU",
+        "launches": NORM_LAUNCHES["phase 6 train_diffusion"][1],
+        "launches_by_path": {k: v[1] for k, v in NORM_LAUNCHES.items() if v[1]},
+        "max_abs_err": max(r["max_abs_err"] for r in norms["backward"]),
+        **norms["totals"]["train_unet_backward_512"],
+        "bound_by": "bytes",
+        "per": "the 43 norms of one UNet train step of the UNet training cell (512 rows); bound_ms: "
+               f"the function's {NORM_BWD_BYTES} B an element, design_bound_ms: the design's "
+               f"{NORM_BWD_DESIGN_BYTES} B; plain and library: autograd from a retained graph",
+        "totals": {k: v for k, v in norms["totals"].items() if "backward" in k},
+        "sites": norms["backward"],
     }], "unet_forward_ms": fwd_ms, "unet_forward_device_busy_ms": busy_ms,
         "ddpm_grid_s": ddpm_s, "dpm20_grid_s": dpm_s, "dpm20_grid_device_busy_ms": dpm_busy,
         "dpm20_launches": dpm_launches, "train_step_ms": train["step_ms"],

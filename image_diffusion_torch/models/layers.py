@@ -13,8 +13,10 @@ with bf16 compute, the JAX package's policy (`param_dtype=float32`), so the
 optimizer state and updates are fp32.  GroupNorm parameters stay fp32 and
 its statistics are fp32 sums.
 Numerics follow the JAX package's layers:
-  * GroupNorm: var = max(E[x^2] - E[x]^2, 0), eps 1e-5; in bf16 mode the
-    per-element affine x*a + b runs in bf16 from fp32-computed a, b.
+  * GroupNorm: var = max(E[x^2] - E[x]^2, 0), eps 1e-5; in bf16 mode on
+    the CPU the per-element affine x*a + b runs in bf16 from fp32-computed
+    a, b; on a card the kernel pair runs it, and the SiLU after it where
+    the model has one, in fp32 and rounds once (`ops/group_norm.py`).
   * SpatialSelfAttention: GN pre-norm, separate q/k/v, contiguous "(h d)"
     head split, residual add inside; the attention itself takes the route
     `ops.site_route` gives the site.
@@ -59,44 +61,40 @@ def conv(cin: int, cout: int, k: int = 3, stride: int = 1, valid: bool = False) 
 
 
 class GroupNorm(nn.Module):
-    """GroupNorm with fp32 statistics (eps 1e-5); output in the input dtype."""
+    """GroupNorm with fp32 statistics (eps 1e-5); output in the input dtype.
 
-    def __init__(self, num_groups: int, channels: int):
+    With `silu` the SiLU that follows the norm in the model is applied
+    here, so a bf16 tensor on a card takes one fused kernel pair
+    (`ops.group_norm`) for both; every other input (the CPU, fp32
+    verification mode) takes the plain formula (`ops.reference_group_norm`),
+    then `F.silu`.  A site built with `silu` keeps an `nn.Identity` where
+    its `nn.SiLU` was, so module indices and state-dict keys stay those of
+    the original implementation."""
+
+    def __init__(self, num_groups: int, channels: int, silu: bool = False):
         super().__init__()
         self.num_groups = num_groups
+        self.silu = silu
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("groupnorm"):
-            B, C, H, W = x.shape
-            G = self.num_groups
-            cg = C // G
-            n = cg * H * W
-            x32 = x.float()
-            g1 = x32.sum(dim=(2, 3)).view(B, G, cg).sum(-1)
-            g2 = (x32 * x32).sum(dim=(2, 3)).view(B, G, cg).sum(-1)
-            mean = g1 / n
-            # E[x^2]-E[x]^2 can go slightly negative by cancellation
-            var = torch.clamp(g2 / n - mean * mean, min=0.0)
-            inv = torch.rsqrt(var + 1e-5)
-            a = inv.repeat_interleave(cg, dim=1) * self.weight.float()
-            b = self.bias.float() - mean.repeat_interleave(cg, dim=1) * a
-            a, b = a[:, :, None, None], b[:, :, None, None]
-            if x.dtype == torch.bfloat16:
-                return x * a.to(torch.bfloat16) + b.to(torch.bfloat16)
-            return (x32 * a + b).to(x.dtype)
+            if x.is_cuda and x.dtype == torch.bfloat16:
+                return ops.group_norm(x, self.weight.float(), self.bias.float(),
+                                      self.num_groups, self.silu)
+            return ops.reference_group_norm(x, self.weight, self.bias, self.num_groups, self.silu)
 
 
 class Residual(nn.Module):
-    """VAE residual block: (GN, SiLU, conv) x 2 plus skip, 1x1 projection
+    """VAE residual block: (GN + SiLU, conv) x 2 plus skip, 1x1 projection
     on a channel change."""
 
     def __init__(self, cin: int, cout: int, num_groups: int):
         super().__init__()
         self.branch = nn.Sequential(
-            GroupNorm(num_groups, cin), nn.SiLU(), conv(cin, cout),
-            GroupNorm(num_groups, cout), nn.SiLU(), conv(cout, cout),
+            GroupNorm(num_groups, cin, silu=True), nn.Identity(), conv(cin, cout),
+            GroupNorm(num_groups, cout, silu=True), nn.Identity(), conv(cout, cout),
         )
         self.residual_wrapper = conv(cin, cout, 1) if cin != cout else None
 
@@ -182,11 +180,12 @@ class TimeEmbedding(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """GN, SiLU, 3x3 conv: half of a UNet res layer."""
+    """GN + SiLU, 3x3 conv: half of a UNet res layer."""
 
     def __init__(self, cin: int, cout: int, num_groups: int):
         super().__init__()
-        self.layers = nn.Sequential(GroupNorm(num_groups, cin), nn.SiLU(), conv(cin, cout))
+        self.layers = nn.Sequential(GroupNorm(num_groups, cin, silu=True), nn.Identity(),
+                                    conv(cin, cout))
 
     def forward(self, x):
         return self.layers(x)

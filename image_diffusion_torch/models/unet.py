@@ -13,9 +13,10 @@ with grad enabled: each block runs under `torch.utils.checkpoint` with a
 selective policy, so its backward recomputes what the policy does not save.
   * None / "none": every intermediate is kept (the plain module);
   * "dots": the outputs of convolutions, matrix products and the packed
-    attention operator are saved; the GroupNorm/SiLU chains and the
-    fp32 -> bf16 weight casts are recomputed (the JAX package's
-    `_conv_dots_saveable` plus the named "attn" tensors);
+    attention operator are saved; the GroupNorm(+SiLU) operators (on the
+    card) or chains (the plain formula) and the fp32 -> bf16 weight casts
+    are recomputed (the JAX package's `_conv_dots_saveable` plus the named
+    "attn" tensors);
   * "full": only the packed attention operator's outputs are saved.
 Both policies save the attention operator's output and row sums, so the
 recomputed block never launches the forward kernel again: 14 forward and
@@ -86,7 +87,7 @@ class UNet(nn.Module):
             self.upsamples.append(Upsample(cur))
             self.ups.append(DiffusionBlock(cur + skips.pop(), c, **block))
             cur = c
-        self.out_conv = nn.Sequential(GroupNorm(arch.num_groups, cur), nn.SiLU(),
+        self.out_conv = nn.Sequential(GroupNorm(arch.num_groups, cur, silu=True), nn.Identity(),
                                       conv(cur, arch.z_dim))
 
     def _block(self, block: DiffusionBlock, *args):

@@ -4,10 +4,11 @@ applies to stored latents.
 
 The encoder and decoder trunks are `nn.Sequential`s indexed like the
 original PyTorch implementation's (`encoder.down.{i}`, `decoder.up.{i}`,
-parameterless SiLUs holding an index), so its state dicts load as they
-are.  The decoder tracks attention resolutions from the true latent
-resolution (the original's bookkeeping was off by one level; no shipped
-config has attention there, so outputs agree).  The encoder's and the
+a parameterless `nn.Identity` holding the index of each SiLU, which runs
+inside the GroupNorm before it), so its state dicts load as they are.
+The decoder tracks attention resolutions from the true latent resolution
+(the original's bookkeeping was off by one level; no shipped config has
+attention there, so outputs agree).  The encoder's and the
 decoder's mid-block attention (one head, d = the widest channel count,
 384 in the shipped config) take the flash kernel in bf16 (`ops.site_route`).
 
@@ -55,7 +56,7 @@ class Encoder(nn.Module):
         cur = _stage(layers, cur, ch[-1], n, g)
         layers.append(SpatialSelfAttention(cur, arch.num_heads, g))
         cur = _stage(layers, cur, ch[-1], n, g)
-        layers += [GroupNorm(g, cur), nn.SiLU(), conv(cur, z_channels),
+        layers += [GroupNorm(g, cur, silu=True), nn.Identity(), conv(cur, z_channels),
                    conv(z_channels, z_channels, 1)]
         self.down = nn.Sequential(*layers)
 
@@ -81,7 +82,7 @@ class Decoder(nn.Module):
             layers.append(Upsample(cur))
             res *= 2
         cur = _stage(layers, cur, ch[-1], n, g)
-        layers += [GroupNorm(g, cur), nn.SiLU(), conv(cur, arch.in_channels)]
+        layers += [GroupNorm(g, cur, silu=True), nn.Identity(), conv(cur, arch.in_channels)]
         self.up = nn.Sequential(*layers)
 
     def forward(self, z):

@@ -1,4 +1,7 @@
-"""Attention-site routing, the site log, and the attention functions.
+"""Attention-site routing, the site log, the attention functions, and
+GroupNorm(+SiLU) (`group_norm`: its kernel pair on bf16 CUDA tensors,
+`reference_group_norm`: the plain formula; `models/layers.py:GroupNorm`
+routes between them by its input).
 
 Route of a self-attention site, decided by its compute dtype, head dim d
 and token count N:
@@ -49,10 +52,18 @@ from .attention import (
     reference_packed_attention_bwd,
     split_heads,
 )
+from .group_norm import (
+    group_norm,
+    group_norm_bwd,
+    reference_group_norm,
+    reference_group_norm_bwd,
+)
 
 __all__ = [
     "FlashAttention",
     "flash_attention",
+    "group_norm",
+    "group_norm_bwd",
     "merge_heads",
     "packed_attention",
     "packed_attention_bwd",
@@ -61,6 +72,8 @@ __all__ = [
     "reference_attention",
     "reference_attention_heads",
     "reference_flash_attention",
+    "reference_group_norm",
+    "reference_group_norm_bwd",
     "reference_packed_attention",
     "reference_packed_attention_bwd",
     "split_heads",

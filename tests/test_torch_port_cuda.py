@@ -12,6 +12,7 @@ Without a card every test skips.
 import pytest
 import torch
 
+from image_diffusion_torch.ops import group_norm, group_norm_bwd
 from image_diffusion_torch.ops.attention import (
     packed_attention,
     packed_attention_bwd,
@@ -378,8 +379,10 @@ def test_remat_step_launches_each_packed_kernel_once_a_site(card, mode):
     forward and backward under `mode` launch the forward and the backward
     kernel 14 times each (the forward's output is saved, never
     recomputed), and the gradients equal the plain module's to 1e-3
-    relative L2 (the recomputed GroupNorm/SiLU chains are the same kernels
-    on the same inputs; cuDNN's backward may sum in another order)."""
+    relative L2 (the recomputed GroupNorm operators are the same kernels
+    on the same inputs; cuDNN's backward may sum in another order).  The
+    GroupNorm forward kernels run once a norm (43) without remat and again
+    for the 42 inside the blocks under `mode`, the backward's once a norm."""
     from image_diffusion_torch.core.config import UNetArch
     from image_diffusion_torch.models import build_unet
 
@@ -393,9 +396,12 @@ def test_remat_step_launches_each_packed_kernel_once_a_site(card, mode):
         unet = build_unet(UNetArch(), device="cuda", param_dtype=torch.float32, remat=remat)
         unet.load_state_dict(state)
         fwd, bwd = packed_attention.launches, packed_attention_bwd.launches
+        gn_fwd, gn_bwd = group_norm.launches, group_norm_bwd.launches
         torch.mean((unet(*args).float() - noise.cuda()) ** 2).backward()
         torch.cuda.synchronize()
         assert (packed_attention.launches - fwd, packed_attention_bwd.launches - bwd) == (14, 14)
+        norms = (group_norm.launches - gn_fwd, group_norm_bwd.launches - gn_bwd)
+        assert norms == ((43, 43) if remat is None else (85, 43))
         grads[remat] = torch.cat([p.grad.float().flatten() for p in unet.parameters()])
     rel = float((grads[mode] - grads[None]).norm() / grads[None].norm())
     assert rel <= 1e-3, rel
