@@ -50,6 +50,17 @@ Phases, one status line each; any failure exits non-zero:
      launches are counted on each main path (phases 4-10 and 12) and held
      to 43 a UNet forward, 22 a decode, 18 an encode and one backward a
      norm of a train step;
+  3e. DiT-XL/2 at 256x256 and its KL-f8 decoder, at the DiT sampling
+     cell's shapes: the forward kernel at the DiT's d = 72 site (N 256,
+     C 1152, 16 heads) at 128 rows (64 images x 2), with phase 3's bar and
+     times; the GroupNorm pair at every (C, H*W) the full-width decoder
+     normalises (read by hooks on a decode, which also counts 30 forward
+     launches at eps 1e-6), forward at the cell's 64 decoded images and
+     backward at 8, at eps 1e-6 with phase 3d's bars; then one full-width
+     `sample_batch` of 64 images (cfg 1.5, ddim-50 at eta 0, random
+     weights) with the counters zeroed before it: 28 packed launches a DiT
+     call (1,400), 30 GroupNorm launches in the decode, no flash launch
+     (the decoder's d = 512 site takes the plain route);
   4. the full-width UNet forward at batch 54 in bf16: kernel launches per
      forward, its device time by kernel (torch.profiler), and two rows
      against the same rows run on the CPU;
@@ -349,6 +360,22 @@ NORM_FWD_BYTES, NORM_FWD_DESIGN_BYTES = 4, 6
 NORM_BWD_BYTES, NORM_BWD_DESIGN_BYTES = 6, 10
 # the GroupNorm kernels' (forward, backward) launches, by main path
 NORM_LAUNCHES: dict[str, tuple[int, int]] = {}
+# phase 3e: DiT-XL/2's attention site (N, C, heads), d = 72; its rows a
+# DiT call of the sampling cell (64 images x 2); the KL-f8 decoder's
+# GroupNorm calls a decode, their eps, and the rows of phase 3e's backward
+DIT_SITE = (256, 1152, 16)
+DIT_DEPTH = 28
+B_DIT = 2 * 64
+LDM_NORMS = 30
+LDM_EPS = 1e-6
+LDM_BWD_ROWS = 8
+DIT_STEPS = 50
+# the KL-f8 decoder (CompVis kl-f8 config.yaml: ch 128, ch_mult 1,2,4,4,
+# num_res_blocks 2, z 4; sd-vae-ft-ema's scale factor), as the cell's
+# configuration states it
+KL_F8 = dict(layout="ldm", channels=(128, 256, 512, 512), z_dim=4, bottleneck="kl",
+             dec_num_res_blocks=2, attn_resolutions=(), num_heads=1, init_resolution=256,
+             num_groups=32, latent_scale=0.18215)
 # phase 15: the end-to-end quality tool at full width and reduced depth
 # (1,200 images; 2 epochs of 25 steps of 48 in each stage; 270 dev images;
 # 90 generated images for the generative FID in 3 calls of 30)
@@ -459,11 +486,12 @@ def exp_ms(exponentials: float, clock_hz: float) -> float:
     return exponentials / (EXP_PER_CLOCK * clock_hz) * 1e3
 
 
-def phase_kernels(torch, F, attn, clock_hz, B):
+def phase_kernels(torch, F, attn, clock_hz, B, shapes=SITES):
     """Phase 3: packed attention, and the row sums it hands to the
-    backward, vs its plain version and SDPA per site, at batch B."""
+    backward, vs its plain version and SDPA per site of `shapes` (N, C,
+    heads), at batch B."""
     sites = []
-    for N, C, h in SITES:
+    for N, C, h in shapes:
         d = C // h
         g = torch.Generator(device="cuda").manual_seed(1000 * N + C + B)
         q, k, v = (torch.randn(B, N, C, generator=g, device="cuda").to(torch.bfloat16)
@@ -746,21 +774,22 @@ def _max_err(a, ref) -> float:
     return float((a.float() - ref).abs().max())
 
 
-def _norm_forward(torch, F, gn, B, C, HW, silu):
+def _norm_forward(torch, F, gn, B, C, HW, silu, eps=None):
     """One forward row of phase 3d: the kernels against the fp32 formula on
     the same bf16 input, SiLU off and on, at the card test's bar (the plain
     bf16 path's largest error plus one ulp); then times of the kernels
     (`silu` as the model's sites at this shape), the plain formula and
     F.group_norm (+ F.silu) on the same tensor (weights in bf16, as the
-    library takes them)."""
+    library takes them).  `eps`: the norm's (default the kernels')."""
+    eps = gn.EPS if eps is None else eps
     x, w, b, _ = _norm_inputs(torch, B, C, HW, seed=7000 + B + C + HW)
     errs = {}
     for act in (False, True):
-        ref = gn.reference_group_norm(x.float(), w, b, NORM_GROUPS, act)
-        plain = gn.reference_group_norm(x, w, b, NORM_GROUPS, act)
+        ref = gn.reference_group_norm(x.float(), w, b, NORM_GROUPS, act, eps)
+        plain = gn.reference_group_norm(x, w, b, NORM_GROUPS, act, eps)
         before = gn.group_norm.launches
         with torch.no_grad():
-            y = gn.group_norm(x, w, b, NORM_GROUPS, act)
+            y = gn.group_norm(x, w, b, NORM_GROUPS, act, eps)
         torch.cuda.synchronize()
         errs[act] = (_max_err(y, ref), _max_err(plain, ref), _bf16_ulp(ref))
         if not (gn.group_norm.launches == before + 1 and y.dtype == torch.bfloat16
@@ -771,21 +800,21 @@ def _norm_forward(torch, F, gn, B, C, HW, silu):
     w16, b16 = w.to(torch.bfloat16), b.to(torch.bfloat16)
     act = F.silu if silu else (lambda t: t)
     with torch.no_grad():
-        kernel = lambda: gn.group_norm(x, w, b, NORM_GROUPS, silu)  # noqa: E731
-        plain = lambda: gn.reference_group_norm(x, w, b, NORM_GROUPS, silu)  # noqa: E731
-        library = lambda: act(F.group_norm(x, NORM_GROUPS, w16, b16, gn.EPS))  # noqa: E731
+        kernel = lambda: gn.group_norm(x, w, b, NORM_GROUPS, silu, eps)  # noqa: E731
+        plain = lambda: gn.reference_group_norm(x, w, b, NORM_GROUPS, silu, eps)  # noqa: E731
+        library = lambda: act(F.group_norm(x, NORM_GROUPS, w16, b16, eps))  # noqa: E731
         ms, dev_ms = cuda_ms(kernel, iters=20), device_ms(torch, kernel)
         plain_ms, plain_dev_ms = cuda_ms(plain, iters=5), device_ms(torch, plain)
         lib_ms, lib_dev_ms = cuda_ms(library, iters=10), device_ms(torch, library)
     n = B * C * HW
-    row = dict(B=B, C=C, HW=HW, cg=C // NORM_GROUPS, silu=silu,
+    row = dict(B=B, C=C, HW=HW, cg=C // NORM_GROUPS, silu=silu, eps=eps,
                max_abs_err=max(e[0] for e in errs.values()),
                bar={str(a).lower(): dict(err=e[0], plain_err=e[1], ulp=e[2]) for a, e in errs.items()},
                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, plain_device_ms=plain_dev_ms,
                library_ms=lib_ms, library_device_ms=lib_dev_ms,
                bound_ms=n * NORM_FWD_BYTES / PEAK_BYTES * 1e3,
                design_bound_ms=n * NORM_FWD_DESIGN_BYTES / PEAK_BYTES * 1e3)
-    log(f"phase 3d group_norm forward B={B} C={C} HW={HW} cg={C // NORM_GROUPS}: max|err| vs "
+    log(f"phase 3d group_norm forward B={B} C={C} HW={HW} cg={C // NORM_GROUPS} eps {eps:g}: max|err| vs "
         f"fp32 " + ", ".join(f"silu {'on' if a else 'off'} {e[0]:.3e} (plain bf16 {e[1]:.3e} + "
                              f"ulp {e[2]:.3e})" for a, e in errs.items())
         + f"; kernel{' +silu' if silu else ''} {ms:.4f} ms ({dev_ms:.4f} ms on the device), plain "
@@ -799,14 +828,16 @@ def _norm_forward(torch, F, gn, B, C, HW, silu):
     return row
 
 
-def _norm_backward(torch, F, gn, B, C, HW, silu):
+def _norm_backward(torch, F, gn, B, C, HW, silu, eps=None):
     """One backward row of phase 3d: dx against autograd of the fp32
     formula at the card test's bar, dweight and dbias at 1e-3 relative L2,
     one launch each way; then device times of the backward kernels (on the
     forward operator's mean and rstd), of the plain formula's autograd and
-    of F.group_norm (+ F.silu)'s, each from its retained graph."""
+    of F.group_norm (+ F.silu)'s, each from its retained graph.  `eps`: the
+    norm's (default the kernels')."""
     from image_diffusion_torch.ops.group_norm import group_norm_fwd
 
+    eps = gn.EPS if eps is None else eps
     x, w, b, dy = _norm_inputs(torch, B, C, HW, seed=8000 + B + C + HW)
     grads = {}
     for name in ("fp32", "plain", "kernel"):
@@ -814,7 +845,7 @@ def _norm_backward(torch, F, gn, B, C, HW, silu):
         wi, bi = w.clone().requires_grad_(), b.clone().requires_grad_()
         before = (gn.group_norm.launches, gn.group_norm_bwd.launches)
         fn = gn.group_norm if name == "kernel" else gn.reference_group_norm
-        y = fn(xi, wi, bi, NORM_GROUPS, silu)
+        y = fn(xi, wi, bi, NORM_GROUPS, silu, eps)
         y.backward(dy.to(y.dtype))
         torch.cuda.synchronize()
         launched = (gn.group_norm.launches - before[0], gn.group_norm_bwd.launches - before[1])
@@ -827,7 +858,7 @@ def _norm_backward(torch, F, gn, B, C, HW, silu):
     dw_rel = float((kw - rw).norm() / rw.norm())
     db_rel = float((kb - rb).norm() / rb.norm())
     del grads, rx, px, kx
-    _, mean, rstd = group_norm_fwd(x, w, b, NORM_GROUPS, silu)
+    _, mean, rstd = group_norm_fwd(x, w, b, NORM_GROUPS, silu, eps)
     kernel = lambda: gn.group_norm_bwd(dy, x, w, b, mean, rstd, NORM_GROUPS, silu)  # noqa: E731
     ms, dev_ms = cuda_ms(kernel, iters=20), device_ms(torch, kernel)
     act = F.silu if silu else (lambda t: t)
@@ -836,22 +867,22 @@ def _norm_backward(torch, F, gn, B, C, HW, silu):
         xi = x.clone().requires_grad_()
         if name == "plain":
             wi, bi = w.clone().requires_grad_(), b.clone().requires_grad_()
-            y = gn.reference_group_norm(xi, wi, bi, NORM_GROUPS, silu)
+            y = gn.reference_group_norm(xi, wi, bi, NORM_GROUPS, silu, eps)
         else:
             wi, bi = (t.to(torch.bfloat16).requires_grad_() for t in (w, b))
-            y = act(F.group_norm(xi, NORM_GROUPS, wi, bi, gn.EPS))
+            y = act(F.group_norm(xi, NORM_GROUPS, wi, bi, eps))
         grad = lambda: torch.autograd.grad(y, (xi, wi, bi), dy, retain_graph=True)  # noqa: E731
         timed[name] = (cuda_ms(grad, iters=5), device_ms(torch, grad))
         del xi, wi, bi, y
     n = B * C * HW
-    row = dict(B=B, C=C, HW=HW, cg=C // NORM_GROUPS, silu=silu, max_abs_err=err,
+    row = dict(B=B, C=C, HW=HW, cg=C // NORM_GROUPS, silu=silu, eps=eps, max_abs_err=err,
                bar=dict(err=err, plain_err=plain_err, ulp=ulp), dweight_rel_l2=dw_rel,
                dbias_rel_l2=db_rel, ms=ms, device_ms=dev_ms, plain_ms=timed["plain"][0],
                plain_device_ms=timed["plain"][1], library_ms=timed["library"][0],
                library_device_ms=timed["library"][1],
                bound_ms=n * NORM_BWD_BYTES / PEAK_BYTES * 1e3,
                design_bound_ms=n * NORM_BWD_DESIGN_BYTES / PEAK_BYTES * 1e3)
-    log(f"phase 3d group_norm backward B={B} C={C} HW={HW} cg={C // NORM_GROUPS} silu "
+    log(f"phase 3d group_norm backward B={B} C={C} HW={HW} cg={C // NORM_GROUPS} eps {eps:g} silu "
         f"{'on' if silu else 'off'}: dx max|err| vs autograd of fp32 {err:.3e} (plain bf16 "
         f"{plain_err:.3e} + ulp {ulp:.3e}), dweight {dw_rel:.3e} dbias {db_rel:.3e} rel L2 "
         f"(tolerance 1e-3); kernels {ms:.4f} ms ({dev_ms:.4f} ms on the device), plain autograd "
@@ -917,6 +948,107 @@ def phase_group_norm(torch, F) -> dict:
             f"{t['library_ms']:.4f} ms ({t['library_device_ms']:.4f} on the device)")
     return dict(forward=fwd, backward=bwd, totals=totals,
                 calls={k: {f"{C}x{HW}": len(v) for (C, HW), v in s.items()} for k, s in sites.items()})
+
+
+def phase_dit(torch, F, attn, clock_hz) -> dict:
+    """Phase 3e: DiT-XL/2 and the KL-f8 decoder at the DiT sampling
+    cell's shapes: the d = 72 forward kernel at B_DIT rows; the GroupNorm
+    pair at each (C, H*W) of the full-width decoder at eps 1e-6 (forward at
+    the cell's 64 images, backward at LDM_BWD_ROWS); one full-width
+    `sample_batch` with the launches counted from zero."""
+    import importlib
+
+    from image_diffusion_torch.core.config import DiTArch, ScheduleConfig, VAEArch
+    from image_diffusion_torch.models import build_denoiser, build_vae
+    from image_diffusion_torch.models.layers import GroupNorm
+    from image_diffusion_torch.pipelines import DiffusionPipeline
+
+    gn = importlib.import_module("image_diffusion_torch.ops.group_norm")
+    sites = phase_kernels(torch, F, attn, clock_hz, B_DIT, [DIT_SITE])
+    per_forward = {k: DIT_DEPTH * sites[0][k]
+                   for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                             "bound_ms", "exp_ms")}
+    log(f"phase 3e kernel per DiT call ({DIT_DEPTH} sites at B={B_DIT}): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in per_forward.items()))
+
+    # the decoder's norms, read from a decode of 2 latents
+    va = VAEArch(**KL_F8)
+    g = torch.Generator().manual_seed(6)
+    vae = build_vae(va, torch.bfloat16, "cuda", g)
+    calls = []
+
+    def hook(module, inputs, output):
+        _, C, H, W = inputs[0].shape
+        calls.append((C, H * W, module.silu, module.eps))
+
+    handles = [m.register_forward_hook(hook) for m in vae.modules() if isinstance(m, GroupNorm)]
+    reset_norm_launches()
+    with torch.inference_mode():
+        vae.decode(torch.randn(2, 32, 32, 4, device="cuda"))
+    torch.cuda.synchronize()
+    check_norm_launches("phase 3e full-width KL-f8 decode, batch 2", LDM_NORMS, 0)
+    for h in handles:
+        h.remove()
+    if len(calls) != LDM_NORMS or any(e != LDM_EPS for *_, e in calls):
+        raise AssertionError(f"KL-f8 decode: {len(calls)} GroupNorm calls at eps "
+                             f"{sorted({c[3] for c in calls})}, expected {LDM_NORMS} at {LDM_EPS}")
+    shapes: dict = {}
+    for C, HW, silu, _ in calls:
+        shapes.setdefault((C, HW), []).append(silu)
+    fwd, bwd = [], []
+    for (C, HW), silus in sorted(shapes.items()):
+        silu = any(silus)
+        fwd.append(_norm_forward(torch, F, gn, B_DIT // 2, C, HW, silu, LDM_EPS))
+        bwd.append(_norm_backward(torch, F, gn, LDM_BWD_ROWS, C, HW, silu, LDM_EPS))
+        torch.cuda.empty_cache()
+    at = {(r["C"], r["HW"]): r for r in fwd}
+    decode = {k: sum(len(silus) * at[s][k] for s, silus in shapes.items()) for k in NORM_TIMES}
+    log(f"phase 3e group_norm the {LDM_NORMS} norms of a KL-f8 decode of {B_DIT // 2} images: "
+        f"kernels {decode['ms']:.4f} ms ({decode['device_ms']:.4f} ms on the device, "
+        f"{decode['bound_ms'] / decode['device_ms']:.1%} of the function's byte floor "
+        f"{decode['bound_ms']:.4f} ms); plain {decode['plain_ms']:.4f} ms; F.group_norm(+F.silu) "
+        f"{decode['library_ms']:.4f} ms ({decode['library_device_ms']:.4f} on the device)")
+
+    # one full-width sample_batch, as the cell calls it
+    da = DiTArch()
+    dit = build_denoiser(da, torch.bfloat16, "cuda", g)
+    sched = ScheduleConfig(num_steps=1000, beta_start=1e-4, beta_end=0.02, noise_type="beta-linear",
+                           clip_denoised=False)
+    pipe = DiffusionPipeline(va, vae.state_dict(), da, dit.state_dict(), sched,
+                             [str(i) for i in range(da.num_classes)], device="cuda")
+    del dit, vae
+    K = B_DIT // 2
+    labels = torch.randint(da.num_classes, (K,), generator=g)
+    scales = torch.full((K,), 1.5)
+    x = torch.randn(K, 32, 32, 4, generator=g)
+
+    def call():
+        return pipe.sample_batch(labels, scales, x, sampler="ddim", num_inference_steps=DIT_STEPS)
+
+    call()  # warm: kernels loaded, cuBLAS and cuDNN plans made
+    attn.packed_attention.launches = attn.flash_attention.launches = 0
+    reset_norm_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    imgs = call()
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t1
+    check_norm_launches("phase 3e DiT-XL/2 ddim-50 sample_batch", LDM_NORMS, 0)
+    packed, flash = attn.packed_attention.launches, attn.flash_attention.launches
+    log(f"phase 3e DiT-XL/2 ddim-50 sample_batch of {K} images at cfg 1.5: {tuple(imgs.shape)} "
+        f"{imgs.dtype} in {sample_s:.3f} s ({K / sample_s:.3f} img/s); {packed} packed kernel "
+        f"launches (expected {DIT_DEPTH} x {DIT_STEPS}), {flash} flash; range "
+        f"[{float(imgs.min()):.3f}, {float(imgs.max()):.3f}]")
+    if imgs.shape != (K, 256, 256, 3) or not torch.isfinite(imgs).all():
+        raise AssertionError("DiT sample_batch: wrong shape or non-finite images")
+    if packed != DIT_DEPTH * DIT_STEPS or flash != 0:
+        raise AssertionError(f"DiT sample_batch: {packed} packed and {flash} flash launches, "
+                             f"expected {DIT_DEPTH * DIT_STEPS} and 0")
+    del pipe, imgs
+    torch.cuda.empty_cache()
+    return dict(sites=sites, per_forward=per_forward, norm_forward=fwd, norm_backward=bwd,
+                decode_norms=decode, norm_calls={f"{C}x{HW}": len(v) for (C, HW), v in shapes.items()},
+                launches=packed, sample_s=sample_s, images_per_s=K / sample_s)
 
 
 def _random_lpips_file(torch, path: str) -> None:
@@ -3207,6 +3339,7 @@ def main() -> int:
     rank_bwd_sites = phase_bwd_kernels(torch, F, attn, clock_hz, B_RANK)
     flash_batches = phase_flash_kernel(torch, F, attn, clock_hz)
     norms = phase_group_norm(torch, F)
+    dit = phase_dit(torch, F, attn, clock_hz)
 
     # phase 4: full-width UNet forward on the card, two rows against the CPU
     gen = torch.Generator().manual_seed(0)
@@ -3406,19 +3539,24 @@ def main() -> int:
                              "phase 14 sample_grid --data-parallel 1 dpm":
                                  par["sample_grid_dp1"]["launches"],
                              **{f"phase 15 e2e_synthetic_run {k}": r["launches"][0]
-                                for k, r in e2e.items()}},
+                                for k, r in e2e.items()},
+                             "phase 3e DiT-XL/2 ddim-50 sample_batch": dit["launches"]},
         "max_abs_err": max(s["max_abs_err"] for s in sites + serve_sites + shard_sites
-                           + fid_sites),
+                           + fid_sites + dit["sites"]),
         **per_forward,
         "bound_by": "operations" if bound_ops > per_forward["bound_ms"] / 2 else "bytes",
         "per": "one UNet forward at batch 54: 14 sites, two of each shape in sites; "
                "serve_per_forward: one served UNet call at 16 rows (serve_sites); "
                "shard_per_forward: one UNet call of a phase 14 grid shard at 28 rows (shard_sites); "
-               "fid_per_forward: one UNet call of phase 15's generative FID at 60 rows (fid_sites)",
+               "fid_per_forward: one UNet call of phase 15's generative FID at 60 rows (fid_sites); "
+               "dit_per_forward: one DiT-XL/2 call of the DiT sampling cell at 128 rows, 28 sites "
+               "at d = 72 (dit_sites)",
         "sites": sites,
         "serve_sites": serve_sites,
         "shard_sites": shard_sites,
         "fid_sites": fid_sites,
+        "dit_sites": dit["sites"],
+        "dit_per_forward": dit["per_forward"],
         **{f"{name}_per_forward": {k: 2 * sum(s[k] for s in rows)
                                    for k in ("ms", "device_ms", "plain_ms", "library_ms",
                                              "library_device_ms", "bound_ms", "exp_ms")}
@@ -3501,16 +3639,21 @@ def main() -> int:
         "replaces": "no TPU kernel: the plain formula (ops.reference_group_norm), then nn.SiLU",
         "launches": NORM_LAUNCHES["phase 5 ddpm-1000 grid"][0],
         "launches_by_path": {k: v[0] for k, v in NORM_LAUNCHES.items()},
-        "max_abs_err": max(r["max_abs_err"] for r in norms["forward"]),
+        "max_abs_err": max(r["max_abs_err"] for r in norms["forward"] + dit["norm_forward"]),
         **norms["totals"]["sample_unet_forward_510"],
         "bound_by": "bytes",
         "per": "the 43 norms of one UNet call of the sampling cell (510 rows); bound_ms: the "
                f"function's {NORM_FWD_BYTES} B an element, design_bound_ms: the two-pass design's "
                f"{NORM_FWD_DESIGN_BYTES} B; library: F.group_norm (+ F.silu) on the same tensor; "
-               "totals: the norms of each cell's model call; sites: each shape at each row count",
+               "totals: the norms of each cell's model call; sites: each shape at each row count; "
+               "ldm_*: the KL-f8 decoder's norms at eps 1e-6, ldm_decode_64 the 30 of a decode of "
+               "the DiT cell's 64 images",
         "totals": {k: v for k, v in norms["totals"].items() if "forward" in k or "decode" in k},
         "calls": norms["calls"],
         "sites": norms["forward"],
+        "ldm_decode_64": dit["decode_norms"],
+        "ldm_calls": dit["norm_calls"],
+        "ldm_sites": dit["norm_forward"],
     }, {
         "name": "group_norm_bwd",
         "route": "cuda",
@@ -3518,15 +3661,18 @@ def main() -> int:
         "replaces": "no TPU kernel: autograd of the plain formula and nn.SiLU",
         "launches": NORM_LAUNCHES["phase 6 train_diffusion"][1],
         "launches_by_path": {k: v[1] for k, v in NORM_LAUNCHES.items() if v[1]},
-        "max_abs_err": max(r["max_abs_err"] for r in norms["backward"]),
+        "max_abs_err": max(r["max_abs_err"] for r in norms["backward"] + dit["norm_backward"]),
         **norms["totals"]["train_unet_backward_512"],
         "bound_by": "bytes",
         "per": "the 43 norms of one UNet train step of the UNet training cell (512 rows); bound_ms: "
                f"the function's {NORM_BWD_BYTES} B an element, design_bound_ms: the design's "
-               f"{NORM_BWD_DESIGN_BYTES} B; plain and library: autograd from a retained graph",
+               f"{NORM_BWD_DESIGN_BYTES} B; plain and library: autograd from a retained graph; "
+               f"ldm_sites: the KL-f8 decoder's shapes at eps 1e-6, {LDM_BWD_ROWS} rows",
         "totals": {k: v for k, v in norms["totals"].items() if "backward" in k},
         "sites": norms["backward"],
-    }], "unet_forward_ms": fwd_ms, "unet_forward_device_busy_ms": busy_ms,
+        "ldm_sites": dit["norm_backward"],
+    }], "dit_sample_s": dit["sample_s"], "dit_images_per_s": dit["images_per_s"],
+        "unet_forward_ms": fwd_ms, "unet_forward_device_busy_ms": busy_ms,
         "ddpm_grid_s": ddpm_s, "dpm20_grid_s": dpm_s, "dpm20_grid_device_busy_ms": dpm_busy,
         "dpm20_launches": dpm_launches, "train_step_ms": train["step_ms"],
         "train_step_device_busy_ms": train["busy_ms"], "train_step_profiled_ms": train["wall_ms"],

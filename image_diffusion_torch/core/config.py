@@ -8,6 +8,12 @@ are read by a small reader of their flat subset (no `yaml` needed).
 Precision policy: "fp16" and "bf16" both compute in bfloat16 (no loss
 scaling needed), "fp32" stays fp32; training holds parameters and optimizer
 state in fp32 either way.
+
+The port's own keys, which the JAX package has no counterpart of, leave
+`to_dict()` where they hold their defaults, so every config both packages
+read keeps one dict: `VAEArch.layout` and `latent_scale` (the KL-f8
+decoder), `ScheduleConfig.clip_denoised`, and the DiT denoiser
+(`DiTArch`, `DiTConfig`: `configs/dit-xl2-256.yaml`).
 """
 
 from __future__ import annotations
@@ -94,9 +100,30 @@ def resolve_precision(name: str) -> torch.dtype:
     return table[name]
 
 
+def _port_dict(obj, defaults: dict[str, Any]) -> dict[str, Any]:
+    """`dataclasses.asdict(obj)` without the port-only keys in `defaults`
+    that hold their default value."""
+    d = dataclasses.asdict(obj)
+    for k, v in defaults.items():
+        if d[k] == v:
+            del d[k]
+    return d
+
+
+VAE_LAYOUTS = ("jklimmek", "ldm")
+
+
 @dataclass(frozen=True)
 class VAEArch:
-    """Architecture of the stage-1 autoencoder."""
+    """Architecture of the stage-1 autoencoder.
+
+    `layout`: "jklimmek" (the shipped VAE: n ResBlocks a level and on each
+    side of the mid attention) or "ldm", the CompVis latent-diffusion
+    `AutoencoderKL` decoder alone (`models/vae.py:LDMDecoderVAE`: a
+    post-quant 1x1 conv, one ResBlock on each side of the mid attention,
+    dec_num_res_blocks + 1 a level, GroupNorm eps 1e-6; no encoder).
+    `latent_scale`: the sampler's latents are divided by it before the
+    decode (the KL-f8 decoder's 0.18215)."""
 
     in_channels: int = 3
     channels: tuple[int, ...] = (128, 256, 384)
@@ -111,12 +138,18 @@ class VAEArch:
     num_heads: int = 1
     init_resolution: int = 128
     num_groups: int = 32
+    layout: str = "jklimmek"
+    latent_scale: float = 1.0
 
     def __post_init__(self):
         if self.bottleneck not in ("kl", "vq"):
             raise ValueError(f"bottleneck must be 'kl' or 'vq', got {self.bottleneck!r}")
         if self.bottleneck == "vq" and not self.codebook_size:
             raise ValueError("VQ bottleneck requires codebook_size")
+        if self.layout not in VAE_LAYOUTS:
+            raise ValueError(f"layout must be one of {VAE_LAYOUTS}, got {self.layout!r}")
+        if self.layout == "ldm" and (self.bottleneck != "kl" or self.attn_resolutions):
+            raise ValueError("the ldm layout is the KL decoder without attention resolutions")
 
     @property
     def latent_resolution(self) -> int:
@@ -124,7 +157,7 @@ class VAEArch:
         return self.init_resolution // (2 ** (len(self.channels) - 1))
 
     def to_dict(self) -> dict[str, Any]:
-        d = dataclasses.asdict(self)
+        d = _port_dict(self, {"layout": "jklimmek", "latent_scale": 1.0})
         d["channels"] = list(self.channels)
         d["attn_resolutions"] = list(self.attn_resolutions)
         return d
@@ -152,12 +185,45 @@ class UNetArch:
 
 @dataclass(frozen=True)
 class ScheduleConfig:
-    """DDPM noise schedule hyperparameters."""
+    """DDPM noise schedule hyperparameters.  `clip_denoised`: the samplers
+    clamp their x0 estimate to [-1, 1] (the shipped configs), or leave it
+    (DiT's sampling on unbounded latents)."""
 
     num_steps: int = 1000
     beta_start: float = 1e-4
     beta_end: float = 0.02
-    noise_type: str = "linear"  # "linear" (scaled-linear) | "cosine"
+    # "linear" (scaled-linear) | "beta-linear" (linear in beta) | "cosine"
+    noise_type: str = "linear"
+    clip_denoised: bool = True
+
+    def to_dict(self) -> dict[str, Any]:
+        return _port_dict(self, {"clip_denoised": True})
+
+
+@dataclass(frozen=True)
+class DiTArch:
+    """Architecture of the DiT denoiser (Peebles & Xie, arXiv:2212.09748;
+    facebookresearch/DiT `models.py`), DiT-XL/2's sizes by default."""
+
+    input_size: int = 32
+    patch_size: int = 2
+    in_channels: int = 4
+    hidden_size: int = 1152
+    depth: int = 28
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    class_dropout_prob: float = 0.1
+    num_classes: int = 1000
+    learn_sigma: bool = True
+
+    @property
+    def z_dim(self) -> int:
+        """Latent channels in (the pipeline's name for them)."""
+        return self.in_channels
+
+    @property
+    def out_channels(self) -> int:
+        return 2 * self.in_channels if self.learn_sigma else self.in_channels
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
@@ -253,6 +319,25 @@ class DiffusionConfig:
             schedule=_build(ScheduleConfig, raw),
             train=_build(DiffusionTrainConfig, raw),
         )
+
+
+@dataclass(frozen=True)
+class DiTConfig:
+    """A DiT sampling configuration (`configs/dit-xl2-256.yaml`): the
+    denoiser's keys, the schedule's, and its decoder's under a `vae_`
+    prefix (the DiT and the VAE both name `in_channels` and `num_heads`)."""
+
+    arch: DiTArch
+    schedule: ScheduleConfig
+    vae: VAEArch
+
+    @classmethod
+    def from_yaml(cls, path: str, **overrides) -> "DiTConfig":
+        raw = parse_config(path)
+        raw.update(overrides)
+        vae = {k[len("vae_"):]: v for k, v in raw.items() if k.startswith("vae_")}
+        return cls(arch=_build(DiTArch, raw), schedule=_build(ScheduleConfig, raw),
+                   vae=_build(VAEArch, vae))
 
 
 def _build(cls, raw: dict[str, Any]):

@@ -13,7 +13,8 @@ with bf16 compute, the JAX package's policy (`param_dtype=float32`), so the
 optimizer state and updates are fp32.  GroupNorm parameters stay fp32 and
 its statistics are fp32 sums.
 Numerics follow the JAX package's layers:
-  * GroupNorm: var = max(E[x^2] - E[x]^2, 0), eps 1e-5; in bf16 mode on
+  * GroupNorm: var = max(E[x^2] - E[x]^2, 0), eps 1e-5 (the KL-f8
+    decoder's 1e-6 where a module is given it); in bf16 mode on
     the CPU the per-element affine x*a + b runs in bf16 from fp32-computed
     a, b; on a card the kernel pair runs it, and the SiLU after it where
     the model has one, in fp32 and rounds once (`ops/group_norm.py`).
@@ -37,6 +38,7 @@ from torch import nn
 
 from .. import ops
 from ..core.profiling import span
+from ..ops.group_norm import EPS as GN_EPS
 
 
 class Conv2d(nn.Conv2d):
@@ -61,7 +63,8 @@ def conv(cin: int, cout: int, k: int = 3, stride: int = 1, valid: bool = False) 
 
 
 class GroupNorm(nn.Module):
-    """GroupNorm with fp32 statistics (eps 1e-5); output in the input dtype.
+    """GroupNorm with fp32 statistics (eps 1e-5 unless given); output in the
+    input dtype.
 
     With `silu` the SiLU that follows the norm in the model is applied
     here, so a bf16 tensor on a card takes one fused kernel pair
@@ -71,10 +74,12 @@ class GroupNorm(nn.Module):
     its `nn.SiLU` was, so module indices and state-dict keys stay those of
     the original implementation."""
 
-    def __init__(self, num_groups: int, channels: int, silu: bool = False):
+    def __init__(self, num_groups: int, channels: int, silu: bool = False,
+                 eps: float = GN_EPS):
         super().__init__()
         self.num_groups = num_groups
         self.silu = silu
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
@@ -82,8 +87,24 @@ class GroupNorm(nn.Module):
         with span("groupnorm"):
             if x.is_cuda and x.dtype == torch.bfloat16:
                 return ops.group_norm(x, self.weight.float(), self.bias.float(),
-                                      self.num_groups, self.silu)
-            return ops.reference_group_norm(x, self.weight, self.bias, self.num_groups, self.silu)
+                                      self.num_groups, self.silu, self.eps)
+            return ops.reference_group_norm(x, self.weight, self.bias, self.num_groups, self.silu,
+                                            self.eps)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Self-attention of (B, N, C) q, k, v, heads as contiguous "(h d)"
+    channel bands, by the route `ops.site_route` gives the site (logged by
+    `ops.log_site`)."""
+    B, N, C = q.shape
+    route = ops.site_route(N, C, num_heads, q.dtype)
+    ops.log_site(B, N, C, num_heads, route)
+    if route == "kernel":
+        return ops.packed_attention(q, k, v, num_heads)
+    if route == "flash":
+        heads = (ops.split_heads(t, num_heads).contiguous() for t in (q, k, v))
+        return ops.merge_heads(ops.flash_attention(*heads, 1.0 / math.sqrt(C // num_heads)))
+    return ops.reference_attention(q, k, v, num_heads)
 
 
 class Residual(nn.Module):
@@ -118,17 +139,8 @@ class SpatialSelfAttention(nn.Module):
     def forward(self, x):
         B, C, H, W = x.shape
         tokens = self.groupnorm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
-        route = ops.site_route(H * W, C, self.num_heads, x.dtype)
-        ops.log_site(B, H * W, C, self.num_heads, route)
         q, k, v = self.to_q(tokens), self.to_k(tokens), self.to_v(tokens)
-        if route == "kernel":
-            attn = ops.packed_attention(q, k, v, self.num_heads)
-        elif route == "flash":
-            heads = (ops.split_heads(t, self.num_heads).contiguous() for t in (q, k, v))
-            attn = ops.merge_heads(ops.flash_attention(*heads, 1.0 / math.sqrt(C // self.num_heads)))
-        else:
-            attn = ops.reference_attention(q, k, v, self.num_heads)
-        out = self.out_proj(attn)
+        out = self.out_proj(attend(q, k, v, self.num_heads))
         return out.reshape(B, H, W, C).permute(0, 3, 1, 2) + x
 
 

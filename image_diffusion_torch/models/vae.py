@@ -12,6 +12,18 @@ attention there, so outputs agree).  The encoder's and the
 decoder's mid-block attention (one head, d = the widest channel count,
 384 in the shipped config) take the flash kernel in bf16 (`ops.site_route`).
 
+The "ldm" layout (`VAEArch.layout`) is the CompVis latent-diffusion
+`AutoencoderKL` decoder that DiT samples through (stabilityai/sd-vae-ft-ema,
+`ldm/modules/diffusionmodules/model.py:Decoder` with
+`models/first_stage_models/kl-f8/config.yaml`), under its own module names
+(`post_quant_conv`, `decoder.conv_in`, `decoder.mid.block_1.norm1`,
+`decoder.up.{level}.block.{i}.conv1`, `decoder.norm_out`, ...): a 1x1
+post-quant conv, conv_in, a mid ResBlock / one-head attention / ResBlock,
+then per level from the widest dec_num_res_blocks + 1 ResBlocks and a
+nearest-2x upsample (not after the last), norm_out + SiLU, conv_out;
+GroupNorm eps 1e-6.  `LDMDecoderVAE` holds it, decode only (no encoder).
+Its mid attention (d = 512) takes the plain route (`ops.site_route`).
+
 The VQ codebook holds its embeddings and EMA statistics as fp32 buffers
 (state, not parameters), finds nearest codes in fp32, reports the
 commitment loss and the code perplexity, and in training updates itself
@@ -29,7 +41,9 @@ import torch.distributed as dist
 from torch import nn
 
 from ..core.config import VAEArch
-from .layers import Downsample, GroupNorm, Residual, SpatialSelfAttention, Upsample, conv
+from .layers import Downsample, GroupNorm, Residual, SpatialSelfAttention, Upsample, attend, conv
+
+LDM_EPS = 1e-6  # the ldm layout's GroupNorm eps (`Normalize`)
 
 
 def _stage(layers: list, cur: int, cout: int, n_res: int, groups: int) -> int:
@@ -87,6 +101,78 @@ class Decoder(nn.Module):
 
     def forward(self, z):
         return self.up(z)
+
+
+class LDMResBlock(nn.Module):
+    """LDM's `ResnetBlock` without a time embedding: norm1 + SiLU, conv1,
+    norm2 + SiLU, conv2, plus the input (a 1x1 `nin_shortcut` on a channel
+    change)."""
+
+    def __init__(self, cin: int, cout: int, groups: int):
+        super().__init__()
+        self.norm1 = GroupNorm(groups, cin, silu=True, eps=LDM_EPS)
+        self.conv1 = conv(cin, cout)
+        self.norm2 = GroupNorm(groups, cout, silu=True, eps=LDM_EPS)
+        self.conv2 = conv(cout, cout)
+        self.nin_shortcut = conv(cin, cout, 1) if cin != cout else None
+
+    def forward(self, x):
+        h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
+        return (x if self.nin_shortcut is None else self.nin_shortcut(x)) + h
+
+
+class LDMAttnBlock(nn.Module):
+    """LDM's `AttnBlock`: GroupNorm, 1x1 convs q, k, v, one head over the
+    H*W tokens, 1x1 `proj_out`, plus the input."""
+
+    def __init__(self, channels: int, groups: int):
+        super().__init__()
+        self.norm = GroupNorm(groups, channels, eps=LDM_EPS)
+        self.q, self.k, self.v, self.proj_out = (conv(channels, channels, 1) for _ in range(4))
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        h = self.norm(x)
+        q, k, v = (m(h).permute(0, 2, 3, 1).reshape(B, H * W, C) for m in (self.q, self.k, self.v))
+        out = attend(q, k, v, 1).reshape(B, H, W, C).permute(0, 3, 1, 2)
+        return x + self.proj_out(out)
+
+
+class LDMDecoder(nn.Module):
+    """The latent-diffusion KL decoder (see the module doc); `channels` are
+    ch * ch_mult from the narrowest level."""
+
+    def __init__(self, arch: VAEArch):
+        super().__init__()
+        ch, g, n = arch.channels, arch.num_groups, arch.dec_num_res_blocks + 1
+        cur = ch[-1]
+        self.conv_in = conv(arch.z_dim, cur)
+        self.mid = nn.Module()
+        self.mid.block_1 = LDMResBlock(cur, cur, g)
+        self.mid.attn_1 = LDMAttnBlock(cur, g)
+        self.mid.block_2 = LDMResBlock(cur, cur, g)
+        levels: list[nn.Module] = [nn.Module() for _ in ch]
+        for i in reversed(range(len(ch))):
+            level = levels[i]
+            level.block = nn.ModuleList()
+            for _ in range(n):
+                level.block.append(LDMResBlock(cur, ch[i], g))
+                cur = ch[i]
+            if i > 0:
+                level.upsample = Upsample(cur)
+        self.up = nn.ModuleList(levels)
+        self.norm_out = GroupNorm(g, cur, silu=True, eps=LDM_EPS)
+        self.conv_out = conv(cur, arch.in_channels)
+
+    def forward(self, z):
+        h = self.conv_in(z)
+        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
+        for i in reversed(range(len(self.up))):
+            for block in self.up[i].block:
+                h = block(h)
+            if i > 0:
+                h = self.up[i].upsample(h)
+        return self.conv_out(self.norm_out(h))
 
 
 def nearest_code(flat: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -303,3 +389,22 @@ class VAE(nn.Module):
                 raise ValueError("Cannot quantize in the KL model!")
             z = self.codebook.quantize(z)
         return self.decoder(z.to(self.dtype).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class LDMDecoderVAE(nn.Module):
+    """The ldm layout (see the module doc): the 1x1 `post_quant_conv` and
+    `LDMDecoder`, decode only; NHWC latents in, NHWC images out, as
+    `VAE.decode`."""
+
+    def __init__(self, arch: VAEArch, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.arch = arch
+        self.dtype = dtype
+        self.post_quant_conv = conv(arch.z_dim, arch.z_dim, 1)
+        self.decoder = LDMDecoder(arch)
+
+    def decode(self, z: torch.Tensor, quantize: bool = False) -> torch.Tensor:
+        if quantize:
+            raise ValueError("Cannot quantize in the KL model!")
+        z = self.post_quant_conv(z.to(self.dtype).permute(0, 3, 1, 2))
+        return self.decoder(z).permute(0, 2, 3, 1)

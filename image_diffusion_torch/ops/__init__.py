@@ -10,7 +10,10 @@ and token count N:
     multiple of 16 -- all 14 UNet sites of the shipped config
     (d = 16/32/48/64).  With grad enabled it runs as the operator
     `attention.packed_attention_fwd`: the forward kernel, and as its
-    gradient the backward kernels of `csrc/packed_attention_bwd.cu`;
+    gradient the backward kernels of `csrc/packed_attention_bwd.cu`.  A
+    d = 72 site (DiT-XL/2's 28, 16 heads of 1152) takes the forward kernel
+    too, without grad only: the backward kernels have no d = 72, so with
+    grad enabled it routes "plain";
   * "flash": the blockwise kernel (`attention.flash_attention`, heads split
     to the (B, H, N, D) layout) for a bf16 site whose d is in
     `FLASH_HEAD_DIMS` and N a multiple of its 64-row tile -- the VAE's two
@@ -19,7 +22,8 @@ and token count N:
     autograd of the einsum path, as in the JAX package;
   * "plain": the einsum path (`attention.reference_attention`) for
     everything else, fp32 (verification) mode included, differentiated by
-    autograd.
+    autograd: the KL-f8 decoder's one-head d = 512 mid-block sites among
+    them (past the flash kernel's 384).
 
 The JAX package's ceilings on C (`packed_max_c`) and its 128-lane grouping
 exclusion were TPU measurements and are not carried over; every site's
@@ -37,6 +41,7 @@ import torch
 from .attention import (
     FLASH_HEAD_DIMS,
     FLASH_TILE,
+    FORWARD_HEAD_DIMS,
     HEAD_DIMS,
     FlashAttention,
     flash_attention,
@@ -85,11 +90,13 @@ __all__ = [
 
 def site_route(N: int, C: int, num_heads: int, dtype: torch.dtype) -> str:
     """"kernel", "flash" or "plain" for a self-attention site (see module
-    doc)."""
+    doc); a forward-only head dim reads whether grad is enabled."""
     if dtype != torch.bfloat16 or C % num_heads:
         return "plain"
     d = C // num_heads
     if d in HEAD_DIMS and N % 16 == 0:
+        return "kernel"
+    if d in FORWARD_HEAD_DIMS and N % 16 == 0 and not torch.is_grad_enabled():
         return "kernel"
     if d in FLASH_HEAD_DIMS and N % FLASH_TILE == 0:
         return "flash"

@@ -33,7 +33,10 @@ def _count_launch(wrapper) -> None:
         wrapper.launches += 1
 
 LOG2E = 1.4426950408889634
+# head dims of the packed pair (forward and backward kernels), and those of
+# the forward kernel alone: d = 72 (DiT-XL/2), padded to 80 inside it
 HEAD_DIMS = (16, 32, 48, 64)
+FORWARD_HEAD_DIMS = HEAD_DIMS + (72,)
 # head dims and Q/key tile of the flash kernel (`csrc/flash_attention.cu`)
 FLASH_HEAD_DIMS = (128, 256, 384)
 FLASH_TILE = 64
@@ -176,11 +179,12 @@ def _check_tensors(op: str, tensors: dict[str, torch.Tensor], layout: str) -> No
             raise ValueError(f"{op}: {name} must be contiguous and 16-byte aligned")
 
 
-def _check_kernel_inputs(op: str, tensors: dict[str, torch.Tensor], num_heads: int) -> None:
+def _check_kernel_inputs(op: str, tensors: dict[str, torch.Tensor], num_heads: int,
+                         head_dims: tuple[int, ...] = HEAD_DIMS) -> None:
     _check_tensors(op, tensors, "(B, N, C)")
     B, N, C = tensors["q"].shape
-    if num_heads <= 0 or C % num_heads or C // num_heads not in HEAD_DIMS:
-        raise ValueError(f"{op}: head dim C/heads = {C}/{num_heads} not in {HEAD_DIMS}")
+    if num_heads <= 0 or C % num_heads or C // num_heads not in head_dims:
+        raise ValueError(f"{op}: head dim C/heads = {C}/{num_heads} not in {head_dims}")
     if N <= 0 or N % 16:
         raise ValueError(f"{op}: N = {N} must be a positive multiple of 16")
     if not 0 < B <= 65535:
@@ -230,7 +234,8 @@ def _packed_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads
     version on CPU tensors, else the kernel or an error."""
     if _on_cpu(q, k, v):
         return reference_packed_attention(q, k, v, num_heads, return_row_sum)
-    _check_kernel_inputs("packed_attention", {"q": q, "k": k, "v": v}, num_heads)
+    _check_kernel_inputs("packed_attention", {"q": q, "k": k, "v": v}, num_heads,
+                         FORWARD_HEAD_DIMS)
     out, row_sum = _launch_forward(q, k, v, num_heads, return_row_sum)
     return (out, row_sum) if return_row_sum else out
 

@@ -30,8 +30,10 @@
 // bound by the exponentials, not the products.
 //
 // Design.  Every kernel reads Q, K and V in place from the packed layout by
-// head-band offset: no head transpose, no padding and no N x N scores in
-// device memory.
+// head-band offset: no head transpose, no padding in device memory and no
+// N x N scores there.  A head dim that is an odd multiple of 8 (72, DiT-
+// XL/2's 1152 / 16) is padded to the next multiple of 16 in shared memory
+// and registers (`padded`).
 //   * N a multiple of 128: `wg_packed_attention_kernel`.  A warpgroup (128
 //     threads) owns a 64-row Q tile of one head of one batch row; a block
 //     is two warpgroups that share the K/V stream, which halves the
@@ -70,6 +72,12 @@ using namespace packed;
 constexpr int kWarpgroups = 2;  // a block of the wgmma kernel: 128 Q rows
 constexpr int kStages = 3;      // its K/V ring
 
+// The width of the shared K and V tiles and of the score product's K: the
+// head dim rounded up to the 16-deep k-step.  d = 72 (DiT-XL/2) pads to
+// 80: K's columns 72-79 are zero in shared memory and Q's in registers,
+// so the fifth k-step adds nothing; the AV product's n = 72 needs no pad.
+__host__ __device__ constexpr int padded(int d) { return (d + 15) / 16 * 16; }
+
 // Divide a warp's 16 x D accumulator tile by its rows' sums of weights
 // (`l0`, `l1`: this thread's partial sums of rows g and g + 8) and store it;
 // `o0` points at row g, column 2t of the output, `l` at row g of the row
@@ -93,10 +101,21 @@ wg_packed_attention_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ v,
                            __nv_bfloat16* __restrict__ o, float* __restrict__ row_sum,
                            int N, int C, float qscale) {
-  constexpr int KSTEPS = D / 16;            // k-steps of the score product
-  constexpr int TILE_BYTES = kTile * D * 2;  // one K or V tile
+  constexpr int DP = padded(D);              // the tiles' width
+  constexpr int KSTEPS = DP / 16;            // k-steps of the score product
+  constexpr int TILE_BYTES = kTile * DP * 2;  // one K or V tile
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t ring = shared_address(smem);  // stage s: K tile, then V tile
+  if constexpr (DP != D) {
+    // the K tiles' last chunk (channels D to DP = D + 8) of each 8-row
+    // group: zero once, never written by a copy; one 16-byte row of it a
+    // tile row
+    for (int i = threadIdx.x; i < kStages * kTile; i += kWarpgroups * 128) {
+      const int stage = i / kTile, r = i % kTile;
+      const int off = ((r / 8) * (DP / 8) + D / 8) * 128 + (r % 8) * 16;
+      *reinterpret_cast<uint4*>(smem + stage * 2 * TILE_BYTES + off) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -109,10 +128,11 @@ wg_packed_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int tiles = N / kTile;
 
 #pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) fetch_pair<D, kStages, kWarpgroups * 128>(ring, t, tiles, kb, vb, C);
+  for (int t = 0; t < kStages - 1; ++t)
+    fetch_pair<D, kStages, kWarpgroups * 128, DP>(ring, t, tiles, kb, vb, C);
 
   uint32_t qa[KSTEPS][4];
-  load_a(qa, q + base + (size_t)row0 * C, C, g, tq, qscale);
+  load_a<KSTEPS, D>(qa, q + base + (size_t)row0 * C, C, g, tq, qscale);
 
   float acc[D / 2];
 #pragma unroll
@@ -123,7 +143,7 @@ wg_packed_attention_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_wait<kStages - 2>();  // this thread's part of tile t has landed
     fence_proxy_async();
     __syncthreads();  // all of tile t has landed; all warps are done with tile t - 1
-    fetch_pair<D, kStages, kWarpgroups * 128>(ring, t + kStages - 1, tiles, kb, vb, C);
+    fetch_pair<D, kStages, kWarpgroups * 128, DP>(ring, t + kStages - 1, tiles, kb, vb, C);
     const uint32_t ks = ring + (t % kStages) * 2 * TILE_BYTES;
     const uint32_t vs = ks + TILE_BYTES;
 
@@ -131,7 +151,7 @@ wg_packed_attention_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk)
-      WgmmaRS<kTile>::template run<0>(s, qa[kk], desc_rows<D>(ks, kk), kk > 0);
+      WgmmaRS<kTile>::template run<0>(s, qa[kk], desc_rows<DP>(ks, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(s);
@@ -150,7 +170,7 @@ wg_packed_attention_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kb16 = 0; kb16 < kTile / 16; ++kb16)
-      WgmmaRS<D>::template run<1>(acc, pa[kb16], desc_cols<D>(vs, kb16), 1);
+      WgmmaRS<D>::template run<1>(acc, pa[kb16], desc_cols<DP>(vs, kb16), 1);
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(acc);
@@ -169,11 +189,17 @@ packed_attention_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ v,
                         __nv_bfloat16* __restrict__ o, float* __restrict__ row_sum,
                         int N, int C, float qscale) {
-  constexpr int KSTEPS = D / 16;  // k-steps of the score product
-  constexpr int NTILES = D / 8;   // n-tiles of the AV product
-  constexpr int LDS = D + 8;      // shared row stride: 8 elements of padding, distinct banks
+  constexpr int DP = padded(D);
+  constexpr int KSTEPS = DP / 16;  // k-steps of the score product
+  constexpr int NTILES = D / 8;    // n-tiles of the AV product
+  constexpr int LDS = DP + 8;      // shared row stride: 8 elements of padding, distinct banks
   __shared__ __align__(16) __nv_bfloat16 ks[kTile * LDS];
   __shared__ __align__(16) __nv_bfloat16 vs[kTile * LDS];
+  if constexpr (DP != D) {
+    // K's columns [D, DP): zero once, never written by the staging
+    for (int r = threadIdx.x; r < kTile; r += WARPS * 32)
+      *reinterpret_cast<uint4*>(&ks[r * LDS + D]) = make_uint4(0u, 0u, 0u, 0u);
+  }
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -185,7 +211,7 @@ packed_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t base = (size_t)blockIdx.z * N * C + (size_t)blockIdx.y * D;
 
   uint32_t qa[KSTEPS][4];
-  if (active) load_a(qa, q + base + (size_t)row0 * C, C, g, tq, qscale);
+  if (active) load_a<KSTEPS, D>(qa, q + base + (size_t)row0 * C, C, g, tq, qscale);
 
   float acc[D / 2];
 #pragma unroll
@@ -223,7 +249,7 @@ template <int D>
 cudaError_t launch_wg(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                       __nv_bfloat16* o, float* row_sum, int B, int N, int C, int heads,
                       float qscale, cudaStream_t stream) {
-  constexpr int SMEM = kStages * 2 * kTile * D * 2;
+  constexpr int SMEM = kStages * 2 * kTile * padded(D) * 2;
   if (SMEM > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(wg_packed_attention_kernel<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
@@ -260,7 +286,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* r
 
 // q, k, v, o: contiguous bf16 (B, N, C) device buffers, 16-byte aligned;
 // row_sum: fp32 (B, heads, N) that receives each row's sum of weights, or
-// null for none; C = heads * d with d in {16, 32, 48, 64}; N a positive
+// null for none; C = heads * d with d in {16, 32, 48, 64, 72}; N a positive
 // multiple of 16.  qscale = log2(e) / sqrt(d).  Launches on `stream` and
 // returns the cudaError_t of the launch (0 on success).
 extern "C" int packed_attention_forward(const void* q, const void* k, const void* v, void* o,
@@ -275,6 +301,7 @@ extern "C" int packed_attention_forward(const void* q, const void* k, const void
     case 32: return (int)launch<32>(q, k, v, o, row_sum, B, N, C, heads, qscale, s);
     case 48: return (int)launch<48>(q, k, v, o, row_sum, B, N, C, heads, qscale, s);
     case 64: return (int)launch<64>(q, k, v, o, row_sum, B, N, C, heads, qscale, s);
+    case 72: return (int)launch<72>(q, k, v, o, row_sum, B, N, C, heads, qscale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

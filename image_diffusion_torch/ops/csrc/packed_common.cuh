@@ -15,7 +15,7 @@
 //     transposed copy.  Any D that is a multiple of 16 fits, 48 included,
 //     which none of the 32/64/128-byte swizzles would take;
 //   * `wgmma.mma_async` m64nNk16 (bf16 x bf16 -> fp32) with A in registers
-//     and B in shared memory, for N in {16, 32, 48, 64, 128, 192}, with both
+//     and B in shared memory, for N in {16, 32, 48, 64, 72, 128, 192}, with both
 //     in shared memory for N in {64, 128, 192}, and its fences.  A thread's
 //     accumulators of a 64 x N tile are, per 8 columns
 //     j: d[4j], d[4j+1] = row g, columns 8j + 2t, + 1 and d[4j+2], d[4j+3] =
@@ -73,8 +73,10 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // A fragments (mma.sync m16n8k16 and wgmma m64nNk16 alike) of the 16 x D
 // block whose first row is `r0` of a row-major matrix with row stride `ld`,
-// each pair scaled in fp32 and rounded back
-template <int KSTEPS>
+// each pair scaled in fp32 and rounded back.  Columns at or past DV (a head
+// dim that is an odd multiple of 8, padded to KSTEPS * 16) are zero and
+// not read.
+template <int KSTEPS, int DV = KSTEPS * 16>
 __device__ __forceinline__ void load_a(uint32_t (&a)[KSTEPS][4], const __nv_bfloat16* r0,
                                        size_t ld, int g, int tq, float scale) {
 #pragma unroll
@@ -83,8 +85,12 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[KSTEPS][4], const __nv_bflo
     const __nv_bfloat16* p1 = p0 + (size_t)8 * ld;
     a[kk][0] = scaled_pair(*reinterpret_cast<const uint32_t*>(p0), scale);
     a[kk][1] = scaled_pair(*reinterpret_cast<const uint32_t*>(p1), scale);
-    a[kk][2] = scaled_pair(*reinterpret_cast<const uint32_t*>(p0 + 8), scale);
-    a[kk][3] = scaled_pair(*reinterpret_cast<const uint32_t*>(p1 + 8), scale);
+    if (kk * 16 + 8 < DV) {
+      a[kk][2] = scaled_pair(*reinterpret_cast<const uint32_t*>(p0 + 8), scale);
+      a[kk][3] = scaled_pair(*reinterpret_cast<const uint32_t*>(p1 + 8), scale);
+    } else {
+      a[kk][2] = a[kk][3] = 0u;
+    }
   }
 }
 
@@ -200,11 +206,13 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // Start the copy of rows [0, ROWS) of the head band at `g` (row stride C
 // elements) into the tile at shared address `tile`, in core-matrix order:
-// the 16-byte chunk c of row r lands at ((r / 8) * (D / 8) + c) * 128 +
-// (r % 8) * 16.  Thread `idx` takes row (idx % 8) of core matrix (idx / 8),
-// so a warp writes 512 contiguous bytes (no bank conflicts) and reads whole
-// 32-byte sectors.
-template <int D, int ROWS, int THREADS>
+// the 16-byte chunk c of row r lands at ((r / 8) * (DP / 8) + c) * 128 +
+// (r % 8) * 16, DP >= D being the tile's width (DP > D leaves the chunks
+// past D of each 8-row group unwritten: the zero padding of a head dim
+// that is an odd multiple of 8).  Thread `idx` takes row (idx % 8) of core
+// matrix (idx / 8), so a warp writes 512 contiguous bytes (no bank
+// conflicts) and reads whole 32-byte sectors.
+template <int D, int ROWS, int THREADS, int DP = D>
 __device__ __forceinline__ void stage_tile(uint32_t tile, const __nv_bfloat16* g, int C) {
   constexpr int CHUNKS = D / 8;
   constexpr int TOTAL = ROWS * CHUNKS;
@@ -214,7 +222,9 @@ __device__ __forceinline__ void stage_tile(uint32_t tile, const __nv_bfloat16* g
     if (TOTAL % THREADS == 0 || idx < TOTAL) {
       const int r = (idx / (8 * CHUNKS)) * 8 + (idx & 7);
       const int c = (idx >> 3) % CHUNKS;
-      cp_async16(tile + idx * 16, g + (size_t)r * C + c * 8);
+      const uint32_t dst = DP == D ? tile + idx * 16
+                                   : tile + ((r >> 3) * (DP / 8) + c) * 128 + (idx & 7) * 16;
+      cp_async16(dst, g + (size_t)r * C + c * 8);
     }
   }
 }
@@ -223,15 +233,15 @@ __device__ __forceinline__ void stage_tile(uint32_t tile, const __nv_bfloat16* g
 // head bands `a` and `b` into stage t % STAGES of the ring at shared address
 // `ring` (a's tile, then b's), or nothing past the last tile; one cp.async
 // group either way, so a wait counts tiles.
-template <int D, int STAGES, int THREADS>
+template <int D, int STAGES, int THREADS, int DP = D>
 __device__ __forceinline__ void fetch_pair(uint32_t ring, int t, int tiles,
                                            const __nv_bfloat16* a, const __nv_bfloat16* b,
                                            int C) {
-  constexpr int TILE_BYTES = kTile * D * 2;
+  constexpr int TILE_BYTES = kTile * DP * 2;
   if (t < tiles) {
     const uint32_t stage = ring + (t % STAGES) * 2 * TILE_BYTES;
-    stage_tile<D, kTile, THREADS>(stage, a + (size_t)t * kTile * C, C);
-    stage_tile<D, kTile, THREADS>(stage + TILE_BYTES, b + (size_t)t * kTile * C, C);
+    stage_tile<D, kTile, THREADS, DP>(stage, a + (size_t)t * kTile * C, C);
+    stage_tile<D, kTile, THREADS, DP>(stage + TILE_BYTES, b + (size_t)t * kTile * C, C);
   }
   cp_async_commit();
 }
@@ -371,6 +381,35 @@ struct WgmmaRS<64> {
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(TRANS_B));
+  }
+};
+
+
+template <>
+struct WgmmaRS<72> {
+  template <int TRANS_B>
+  static __device__ __forceinline__ void run(float (&d)[36], const uint32_t (&a)[4], uint64_t desc,
+                                             int accumulate) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, %42;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(TRANS_B));
   }
 };

@@ -3,7 +3,8 @@ the Hopper kernel pair.
 
   * `reference_group_norm`: the JAX package's formula in plain PyTorch
     (fp32 sums of x and x^2 per group, var = max(E[x^2] - E[x]^2, 0), eps
-    1e-5; in bf16 the affine x * a + b runs in bf16 from fp32 a and b),
+    1e-5 unless given, as the KL-f8 decoder's 1e-6; in bf16 the affine
+    x * a + b runs in bf16 from fp32 a and b),
     then SiLU when asked.  `models/layers.py:GroupNorm` takes it on the CPU
     and in fp32 (verification) mode.
   * `group_norm`: the kernels of `csrc/group_norm.cu` on bf16 CUDA tensors
@@ -39,9 +40,9 @@ MAX_C = 2048            # at most 256 threads a pixel lane (the kernels' launch 
 
 
 def reference_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                         num_groups: int, silu: bool = False) -> torch.Tensor:
-    """GroupNorm of NCHW `x` with fp32 statistics (eps 1e-5), output in x's
-    dtype, then SiLU when `silu`: the JAX package's formula."""
+                         num_groups: int, silu: bool = False, eps: float = EPS) -> torch.Tensor:
+    """GroupNorm of NCHW `x` with fp32 statistics, output in x's dtype, then
+    SiLU when `silu`: the JAX package's formula."""
     B, C, H, W = x.shape
     G = num_groups
     cg = C // G
@@ -52,7 +53,7 @@ def reference_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
     mean = g1 / n
     # E[x^2]-E[x]^2 can go slightly negative by cancellation
     var = torch.clamp(g2 / n - mean * mean, min=0.0)
-    inv = torch.rsqrt(var + EPS)
+    inv = torch.rsqrt(var + eps)
     a = inv.repeat_interleave(cg, dim=1) * weight.float()
     b = bias.float() - mean.repeat_interleave(cg, dim=1) * a
     a, b = a[:, :, None, None], b[:, :, None, None]
@@ -180,7 +181,7 @@ def _check(op: str, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def _launch_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                    num_groups: int, silu: bool, with_stats: bool):
+                    num_groups: int, silu: bool, with_stats: bool, eps: float = EPS):
     """The forward kernels on checked tensors -> (y, mean, rstd), the fp32
     (B, G) statistics only `with_stats` (else None).  Adds one to
     `group_norm.launches`."""
@@ -194,7 +195,7 @@ def _launch_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     err = _on_device(x.device, lambda stream: _entry("group_norm_forward")(
         x.data_ptr(), y.data_ptr(), mean.data_ptr() if with_stats else None,
         rstd.data_ptr() if with_stats else None, weight.data_ptr(), bias.data_ptr(),
-        part.data_ptr(), B, H * W, C, num_groups, P, T, threads, EPS, int(silu), stream))
+        part.data_ptr(), B, H * W, C, num_groups, P, T, threads, eps, int(silu), stream))
     if err != 0:
         raise RuntimeError(f"group_norm kernel launch failed: cudaError {err}")
     _count_launch(group_norm)
@@ -235,11 +236,11 @@ group_norm_bwd.launches = 0
 
 @torch.library.custom_op("image_diffusion_torch::group_norm_fwd", mutates_args=())
 def group_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int,
-                   silu: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   silu: bool, eps: float = EPS) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The forward with its statistics -> (y, mean, rstd), as an operator
     whose gradient is `group_norm_bwd_op`."""
     _check("group_norm", x, weight, bias, num_groups)
-    return _launch_forward(x, weight, bias, num_groups, silu, with_stats=True)
+    return _launch_forward(x, weight, bias, num_groups, silu, with_stats=True, eps=eps)
 
 
 @torch.library.custom_op("image_diffusion_torch::group_norm_bwd", mutates_args=())
@@ -251,7 +252,7 @@ def group_norm_bwd_op(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
 
 
 @group_norm_fwd.register_fake
-def _fwd_fake(x, weight, bias, num_groups, silu):
+def _fwd_fake(x, weight, bias, num_groups, silu, eps=EPS):
     B = x.shape[0]
     stats = x.new_empty((B, num_groups), dtype=torch.float32)
     return torch.empty_like(x, memory_format=torch.channels_last), stats, torch.empty_like(stats)
@@ -264,7 +265,7 @@ def _bwd_fake(dy, x, weight, bias, mean, rstd, num_groups, silu):
 
 
 def _fwd_setup_context(ctx, inputs, output):
-    x, weight, bias, num_groups, silu = inputs
+    x, weight, bias, num_groups, silu, _eps = inputs
     ctx.num_groups, ctx.silu = num_groups, silu
     ctx.save_for_backward(x, weight, bias, output[1], output[2])
     ctx.set_materialize_grads(False)  # no zero-filled gradients of mean and rstd
@@ -272,12 +273,12 @@ def _fwd_setup_context(ctx, inputs, output):
 
 def _fwd_backward(ctx, dy, _d_mean, _d_rstd):
     if dy is None:
-        return None, None, None, None, None
+        return None, None, None, None, None, None
     x, weight, bias, mean, rstd = ctx.saved_tensors
     dy = dy.contiguous(memory_format=torch.channels_last)
     dx, dweight, dbias = group_norm_bwd_op(dy, x, weight, bias, mean, rstd, ctx.num_groups,
                                            ctx.silu)
-    return dx, dweight, dbias, None, None
+    return dx, dweight, dbias, None, None, None
 
 
 torch.library.register_autograd("image_diffusion_torch::group_norm_fwd", _fwd_backward,
@@ -285,16 +286,16 @@ torch.library.register_autograd("image_diffusion_torch::group_norm_fwd", _fwd_ba
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int,
-               silu: bool = False) -> torch.Tensor:
+               silu: bool = False, eps: float = EPS) -> torch.Tensor:
     """act(GroupNorm(x)) on a bf16 CUDA tensor in channels_last memory, act
     SiLU or the identity: the kernels, or an error.  With grad enabled it
     runs as the operator `group_norm_fwd`; under `no_grad`/`inference_mode`
     the forward runs alone, without statistics.  Each launch of the forward
     kernels adds one to `group_norm.launches`."""
     if torch.is_grad_enabled():
-        return group_norm_fwd(x, weight, bias, num_groups, silu)[0]
+        return group_norm_fwd(x, weight, bias, num_groups, silu, eps)[0]
     _check("group_norm", x, weight, bias, num_groups)
-    return _launch_forward(x, weight, bias, num_groups, silu, with_stats=False)[0]
+    return _launch_forward(x, weight, bias, num_groups, silu, with_stats=False, eps=eps)[0]
 
 
 group_norm.launches = 0

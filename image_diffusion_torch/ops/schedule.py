@@ -5,10 +5,14 @@ the host in float64 and then cast; every step function takes the tables,
 the current sample and integer timesteps (a 0-d or (B,) tensor).
 
 Numerics kept from the JAX package:
-  * "linear" is scaled-linear: betas = linspace(sqrt(b0), sqrt(b1), T)^2.
+  * "linear" is scaled-linear: betas = linspace(sqrt(b0), sqrt(b1), T)^2;
+    "beta-linear" is linear in beta, betas = linspace(b0, b1, T) (DiT's
+    `get_named_beta_schedule("linear")`).
   * cosine uses an 8e-3 offset and clips betas to [0, 0.999].
   * the ancestral step's posterior mean is computed from eps-hat, not from
     the clamped x0 estimate.
+  * the x0 estimate is clamped to [-1, 1] unless a step is given
+    `clip=False` (DiT samples unbounded latents with clip_denoised=False).
   * at t == 0 no noise is added (sigma = 0).
 """
 
@@ -40,6 +44,8 @@ def make_schedule(num_steps: int, beta_start: float = 1e-4, beta_end: float = 0.
     """Build the coefficient tables on the host (float64 -> fp32)."""
     if noise_type == "linear":
         betas = np.linspace(beta_start**0.5, beta_end**0.5, num_steps, dtype=np.float64) ** 2
+    elif noise_type == "beta-linear":
+        betas = np.linspace(beta_start, beta_end, num_steps, dtype=np.float64)
     elif noise_type == "cosine":
         offset = 8e-3
         ts = np.arange(num_steps + 1, dtype=np.float64) / num_steps
@@ -47,7 +53,8 @@ def make_schedule(num_steps: int, beta_start: float = 1e-4, beta_end: float = 0.
         alphas_hat = f / f[0]
         betas = np.clip(1.0 - alphas_hat[1:] / alphas_hat[:-1], 0.0, 0.999)
     else:
-        raise ValueError(f"Unknown noise_type {noise_type!r}; expected 'linear' or 'cosine'")
+        raise ValueError(f"Unknown noise_type {noise_type!r}; expected 'linear', "
+                         "'beta-linear' or 'cosine'")
 
     alphas = 1.0 - betas
     acp = np.cumprod(alphas)
@@ -74,11 +81,14 @@ def q_sample(sched: Schedule, x0: torch.Tensor, noise: torch.Tensor, t: torch.Te
     return mu * x0 + sigma * noise
 
 
-def predict_x0(sched: Schedule, xt: torch.Tensor, eps_hat: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """The clamped x0 estimate from a noise prediction."""
+def predict_x0(sched: Schedule, xt: torch.Tensor, eps_hat: torch.Tensor, t: torch.Tensor,
+               clip: bool = True) -> torch.Tensor:
+    """The x0 estimate from a noise prediction, clamped to [-1, 1] with
+    `clip`."""
     sqrt_acp = _bcast(sched.sqrt_alpha_cum_prod[t], xt.dim())
     sqrt_omacp = _bcast(sched.sqrt_one_minus_alpha_cum_prod[t], xt.dim())
-    return torch.clamp((xt - sqrt_omacp * eps_hat) / sqrt_acp, -1.0, 1.0)
+    x0 = (xt - sqrt_omacp * eps_hat) / sqrt_acp
+    return torch.clamp(x0, -1.0, 1.0) if clip else x0
 
 
 def posterior_mean(sched: Schedule, xt: torch.Tensor, eps_hat: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -114,19 +124,21 @@ def _acp_prev(sched: Schedule, t_prev: torch.Tensor, nd: int) -> torch.Tensor:
 
 
 def ddim_step(sched: Schedule, xt: torch.Tensor, eps_hat: torch.Tensor, t: torch.Tensor,
-              t_prev: torch.Tensor, noise: torch.Tensor, eta: float = 0.0
+              t_prev: torch.Tensor, noise: torch.Tensor, eta: float = 0.0, clip: bool = True
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """One DDIM step x_t -> x_{t_prev}; t_prev < 0 means the final step to x0."""
     acp_t = _bcast(sched.alpha_cum_prod[t], xt.dim())
     acp_prev = _acp_prev(sched, t_prev, xt.dim())
-    x0 = torch.clamp((xt - torch.sqrt(1.0 - acp_t) * eps_hat) / torch.sqrt(acp_t), -1.0, 1.0)
+    x0 = (xt - torch.sqrt(1.0 - acp_t) * eps_hat) / torch.sqrt(acp_t)
+    if clip:
+        x0 = torch.clamp(x0, -1.0, 1.0)
     sigma = eta * torch.sqrt((1 - acp_prev) / (1 - acp_t)) * torch.sqrt(1 - acp_t / acp_prev)
     dir_xt = torch.sqrt(torch.clamp(1.0 - acp_prev - sigma**2, min=0.0)) * eps_hat
     return torch.sqrt(acp_prev) * x0 + dir_xt + sigma * noise, x0
 
 
 def dpmpp_2m_step(sched: Schedule, xt: torch.Tensor, eps_hat: torch.Tensor, t: torch.Tensor,
-                  t_prev: torch.Tensor, x0_prev: torch.Tensor, h_prev
+                  t_prev: torch.Tensor, x0_prev: torch.Tensor, h_prev, clip: bool = True
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One DPM-Solver++(2M) step x_t -> x_{t_prev}; returns (x_prev, x0, h).
 
@@ -140,7 +152,7 @@ def dpmpp_2m_step(sched: Schedule, xt: torch.Tensor, eps_hat: torch.Tensor, t: t
     # keep the not-taken formula branch finite at acp_prev == 1
     acp_p = torch.clamp(_acp_prev(sched, t_prev, nd), max=1.0 - 1e-7)
 
-    x0 = predict_x0(sched, xt, eps_hat, t)
+    x0 = predict_x0(sched, xt, eps_hat, t, clip)
 
     def lam(a):
         return 0.5 * torch.log(a / (1.0 - a))

@@ -1,11 +1,17 @@
 """Inference pipeline: VAE + UNet + schedule -> CFG sample grids.
 
-Classifier-free guidance is one 2x-batched UNet call per step:
+The denoiser is the UNet or DiT (`DiTArch`), by the architecture it is
+given.  Classifier-free guidance is one 2x-batched denoiser call per step:
 [x_t, x_t] with the conditional half carrying class ids (mask 1) and the
-unconditional half class 0 with mask 0 -- exact, since mask 0 equals no
-context.  The two eps halves combine in fp32.  The samplers are plain
-Python loops over the steps; the final VAE decode re-quantizes for VQ
-bundles.
+unconditional half class 0 with mask 0 -- exact for the UNet, since mask 0
+equals no context, and DiT's null class (its last label row) for DiT.  A
+learned-sigma DiT's output is eps, then the variance interpolation; the
+samplers read eps alone, so the ancestral "ddpm" sampler, whose variance
+such a model learns, is refused.  The two eps halves combine in fp32 over
+every latent channel.  The samplers are plain Python loops over the steps
+and clamp their x0 estimate unless the schedule says `clip_denoised:
+false`; the latents are divided by the VAE's `latent_scale` (when not 1)
+before the final decode, which re-quantizes for VQ bundles.
 
 Grid semantics: every class at every guidance scale, scale-major rows
 (row s holds classes 0..K-1 at scale s).
@@ -29,10 +35,10 @@ import torch
 from ..compat.from_jax import unet_flax_params, unet_state_dict, vae_flax_variables, vae_state_dict
 from ..core import checkpoint as ckpt
 from ..core import resolve_device
-from ..core.config import ScheduleConfig, UNetArch, VAEArch, _build
+from ..core.config import DiTArch, ScheduleConfig, UNetArch, VAEArch, _build
 from ..core.profiling import span
 from ..core.progress import progress as progress_bar
-from ..models import build_unet, build_vae
+from ..models import build_denoiser, build_vae
 from ..ops import schedule as S
 from ..parallel.mesh import global_row_draw, pad_to_multiple
 
@@ -46,6 +52,15 @@ def to_uint8(imgs: torch.Tensor) -> torch.Tensor:
 
 def _host_fp32(state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", torch.float32) for k, v in state.items()}
+
+
+def _port_tree(state: Mapping[str, torch.Tensor]) -> dict:
+    """A state dict as a bundle tree under the port's own keys (fp32)."""
+    return {k: v.numpy() for k, v in state.items()}
+
+
+def _port_state(tree: Mapping) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(v) for k, v in tree.items()}
 
 
 def _indexed(device: str | torch.device) -> torch.device:
@@ -68,14 +83,15 @@ class DiffusionPipeline:
     """Composes VAE + UNet + schedule + class vocabulary for sampling.
 
     `vae_state` / `unet_state` are the port's state dicts (see
-    `compat.from_jax` for the flax layout).  The models compute in
+    `compat.from_jax` for the flax layout); `unet_arch` is a `UNetArch` or
+    a `DiTArch`, and `unet` the denoiser it builds.  The models compute in
     `dtype`; the pipeline also keeps the weights it was given as fp32
     copies on the host, and `to_checkpoint` writes those, so a bundle
     read at bf16 and written back is unchanged (the JAX package writes the
     variables it was given likewise)."""
 
     def __init__(self, vae_arch: VAEArch, vae_state: Mapping[str, torch.Tensor],
-                 unet_arch: UNetArch, unet_state: Mapping[str, torch.Tensor],
+                 unet_arch: UNetArch | DiTArch, unet_state: Mapping[str, torch.Tensor],
                  schedule_cfg: ScheduleConfig, classes: Sequence[str] | str,
                  dtype: torch.dtype = torch.bfloat16, device="cuda"):
         self.device = resolve_device(device)
@@ -84,7 +100,7 @@ class DiffusionPipeline:
         self.vae_state, self.unet_state = _host_fp32(vae_state), _host_fp32(unet_state)
         self.vae = build_vae(vae_arch, dtype=dtype, device=self.device)
         self.vae.load_state_dict(vae_state)
-        self.unet = build_unet(unet_arch, dtype=dtype, device=self.device)
+        self.unet = build_denoiser(unet_arch, dtype=dtype, device=self.device)
         self.unet.load_state_dict(unet_state)
         self.sched = S.make_schedule(schedule_cfg.num_steps, schedule_cfg.beta_start,
                                      schedule_cfg.beta_end, schedule_cfg.noise_type,
@@ -92,6 +108,11 @@ class DiffusionPipeline:
         self.classes = classes.split(",") if isinstance(classes, str) else list(classes)
         self._replicas: dict[torch.device, tuple] = {}
         self._replica_lock = threading.Lock()
+
+    @property
+    def learned_sigma(self) -> bool:
+        """The denoiser's output holds a learned variance after eps."""
+        return isinstance(self.unet_arch, DiTArch) and self.unet_arch.learn_sigma
 
     @property
     def latent_shape(self) -> tuple[int, int, int]:
@@ -153,6 +174,9 @@ class DiffusionPipeline:
         with span("sample.call", rows=len(x_init)):
             if output not in ("float32", "uint8"):
                 raise ValueError(f"unknown output {output!r}; expected 'float32' or 'uint8'")
+            if sampler == "ddpm" and self.learned_sigma:
+                raise ValueError("the ddpm sampler needs the learned posterior variance, which "
+                                 "is not ported; use ddim or dpm")
             x = torch.as_tensor(x_init, dtype=torch.float32)
             B = x.shape[0]
             labels = torch.as_tensor(labels).to(torch.int64)
@@ -217,10 +241,12 @@ class DiffusionPipeline:
         scales = scales.reshape(B, 1, 1, 1)
         ctx = torch.cat([labels, torch.zeros_like(labels)])
         mask = torch.cat([torch.ones(B, 1), torch.zeros(B, 1)]).to(dev)
+        z_dim, clip = self.unet_arch.z_dim, self.schedule_cfg.clip_denoised
 
         def eps_fn(xt, t):
             t2 = torch.full((2 * B,), t, dtype=torch.int64, device=dev)
-            eps2 = unet(torch.cat([xt, xt]), t2, ctx, mask).float()
+            out = unet(torch.cat([xt, xt]), t2, ctx, mask)
+            eps2 = (out[..., :z_dim] if self.learned_sigma else out).float()
             eps_c, eps_u = eps2[:B], eps2[B:]
             return eps_u + scales * (eps_c - eps_u)
 
@@ -254,17 +280,19 @@ class DiffusionPipeline:
                     with span("sample.step"):
                         z = step_noise(i) if eta else torch.zeros_like(x)
                         x, _ = S.ddim_step(sched, x, eps_fn(x, t), tvec(t), tvec(t_prev), z,
-                                           eta)
+                                           eta, clip)
             else:
                 x0_prev, h_prev = torch.zeros_like(x), -1.0
                 for t, t_prev in steps(pairs):
                     with span("sample.step"):
                         x, x0_prev, h_prev = S.dpmpp_2m_step(
-                            sched, x, eps_fn(x, t), tvec(t), tvec(t_prev), x0_prev, h_prev)
+                            sched, x, eps_fn(x, t), tvec(t), tvec(t_prev), x0_prev, h_prev, clip)
         else:
             raise ValueError(f"unknown sampler {sampler!r}")
 
         with span("sample.decode"):
+            if self.vae_arch.latent_scale != 1.0:
+                x = x / self.vae_arch.latent_scale
             imgs = vae.decode(x, quantize=self.vae_arch.bottleneck == "vq")
             return to_uint8(imgs) if output == "uint8" else imgs.float()
 
@@ -297,7 +325,18 @@ class DiffusionPipeline:
     # ------------------------------------------------------------------ io
 
     def to_checkpoint(self, path: str) -> None:
-        """Write an inference bundle in the JAX package's layout."""
+        """Write an inference bundle in the JAX package's layout, or, for a
+        DiT (which the JAX package has not), the port's own: the same file
+        format and metadata, the denoiser under "dit", both trees keyed by
+        the port's state-dict names."""
+        if isinstance(self.unet_arch, DiTArch):
+            ckpt.save_checkpoint(
+                path,
+                architecture={"vae": self.vae_arch.to_dict(), "dit": self.unet_arch.to_dict(),
+                              "scheduler": self.schedule_cfg.to_dict(),
+                              "classes": ",".join(self.classes)},
+                vae=_port_tree(self.vae_state), dit=_port_tree(self.unet_state))
+            return
         ckpt.save_checkpoint(
             path,
             architecture={
@@ -316,6 +355,11 @@ class DiffusionPipeline:
         """Load an inference bundle written by either package."""
         trees, meta = ckpt.load_checkpoint(path)
         arch = meta["architecture"]
+        if "dit" in arch:
+            return cls(_build(VAEArch, arch["vae"]), _port_state(trees["vae"]),
+                       _build(DiTArch, arch["dit"]), _port_state(trees["dit"]),
+                       _build(ScheduleConfig, arch["scheduler"]), arch["classes"],
+                       dtype=dtype, device=device)
         return cls(
             _build(VAEArch, arch["vae"]),
             vae_state_dict(trees["vae"]),

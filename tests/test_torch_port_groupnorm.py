@@ -223,15 +223,15 @@ def _emulate_kernels(monkeypatch):
     tensors; count the calls."""
     calls = {"fwd": 0, "bwd": 0}
 
-    def forward(x, weight, bias, num_groups, silu, with_stats):
+    def forward(x, weight, bias, num_groups, silu, with_stats, eps=gn.EPS):
         calls["fwd"] += 1
         B = x.shape[0]
         xs = x.float().reshape(B, num_groups, -1)
         mean = xs.sum(-1) / xs.shape[-1]
         var = torch.clamp((xs * xs).sum(-1) / xs.shape[-1] - mean * mean, min=0.0)
-        y = ops.reference_group_norm(x.float(), weight, bias, num_groups, silu).to(x.dtype)
+        y = ops.reference_group_norm(x.float(), weight, bias, num_groups, silu, eps).to(x.dtype)
         y = y.contiguous(memory_format=torch.channels_last)
-        return (y, mean, torch.rsqrt(var + gn.EPS)) if with_stats else (y, None, None)
+        return (y, mean, torch.rsqrt(var + eps)) if with_stats else (y, None, None)
 
     def backward(*args):
         calls["bwd"] += 1

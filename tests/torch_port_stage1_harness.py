@@ -135,7 +135,7 @@ def configs(s: Setup, out: str):
                            max(s.steps // spe, 1), out, seed=s.seed, precision=s.precision)
     if s.gamma is not None:
         tc = dataclasses.replace(tc, arch=dataclasses.replace(tc.arch, codebook_gamma=s.gamma))
-    jc = jcfg.VAEConfig(jcfg.VAEArch(**dataclasses.asdict(tc.arch)),
+    jc = jcfg.VAEConfig(jcfg._build(jcfg.VAEArch, tc.arch.to_dict()),
                         jcfg.VAETrainConfig(**dataclasses.asdict(tc.train)))
     return jc, tc
 
